@@ -1,6 +1,6 @@
 // Arena serialization library for checkpoint/restart.
 //
-// TPU-native analog of the reference's DataContainer arena
+// JAX analog of the reference's DataContainer arena
 // (src/base/DataContainer.{h,cpp}: arrays registered as chunks, packed into
 // one contiguous aligned block with a check-word, dumped raw by
 // OutputManagerComposite.cpp:108-290).  This library packs named arrays

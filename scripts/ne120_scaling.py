@@ -2,8 +2,9 @@
 p4 L60.
 
 Two modes:
-  - on TPU (default backend): single-chip throughput measurement of the
-    flagship Strang-HEVI step at the full ne120 L60 resolution, f32.
+  - on one GPU (default backend): single-device throughput measurement
+    of the flagship Strang-HEVI step at the full ne120 L60 resolution,
+    f32.
   - with TM_NE120_MESH=1: sharded dry-run on the virtual 8-device CPU
     mesh (reduced nz so the host fits it) through the explicit
     shard_map distribution layer — validates that the ne120 geometry
@@ -47,8 +48,6 @@ def main():
     cfg = ModelConfig(grid_kind=GridKind.CUBED_SPHERE, ne=ne, order=4,
                       nz=nz, ztop=tc.ztop, dt=100.0, hyperdiffusion=True,
                       nu_scalar=1e14, nu_div=1e14, nu_vort=1e14,
-                      vertical_solver=("pallas" if jax.default_backend()
-                                       != "cpu" else "banded"),
                       dtype=jnp.float32)
     t0 = time.time()
     geom = nh_model.build_nh_sphere_geometry(cfg, ztop=tc.ztop)
@@ -99,7 +98,8 @@ def main():
     dt_step = (time.time() - t0) / steps
     assert bool(jnp.isfinite(s["Rho"]).all())
     print(json.dumps({
-        "mode": "tpu_single_chip", "ne": ne, "nz": nz,
+        "mode": "single_device", "ne": ne, "nz": nz,
+        "platform": jax.devices()[0].platform,
         "device": jax.devices()[0].device_kind,
         "ms_per_step": dt_step * 1e3,
         "gridpoint_steps_per_sec": npts / dt_step}))

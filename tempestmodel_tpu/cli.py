@@ -96,8 +96,8 @@ def make_parser():
     ap.add_argument("--hmethod", default="V1",
                     help="horizontal dynamics: V1 | SPEX | HS")
     ap.add_argument("--vmethod", default="V1",
-                    help="vertical solver: V1(banded) | V2(pallas) | SCHUR "
-                         "| JFNK | DENSE")
+                    help="vertical solver: V1 or V2 (banded) | SCHUR | JFNK "
+                         "| DENSE")
     ap.add_argument("--vstagger", default="LOR",
                     help="vertical staggering: LEV | INT | LOR | CPH")
     ap.add_argument("--vdisc", default="FE",
@@ -140,9 +140,9 @@ def make_parser():
     return ap
 
 
-_VMETHOD = {"v1": "banded", "v2": "pallas", "schur": "schur",
+_VMETHOD = {"v1": "banded", "v2": "banded", "schur": "schur",
             "jfnk": "jfnk", "dense": "dense", "banded": "banded",
-            "pallas": "pallas"}
+            "pallas": "banded"}
 
 
 def main(argv=None):

@@ -185,8 +185,10 @@ class ModelConfig:
     #                                 # their d/dW Jacobian entries carry
     #                                 # sign(u^xi) which is roundoff noise at
     #                                 # W = 0, see docs/VALIDATION.md)
-    vertical_solver: str = "banded"   # "banded" (DGBSV analog) | "dense"
-    #                                 # | "pallas" (fused TPU kernel)
+    vertical_solver: str = "banded"   # "banded" (DGBSV analog; its
+    #                                 # implementation is picked per
+    #                                 # platform by backend.banded_solve)
+    #                                 # | "dense" | "schur"
     #                                 # | "jfnk" (matrix-free GMRES)
     jacobian_mode: str = "exact"      # "exact" (AD-consistent analytic
     #                                 # Jacobian) | "reference" (replicate
@@ -196,7 +198,10 @@ class ModelConfig:
 
     # --- numerics ---
     dtype: jnp.dtype = jnp.float64    # fp64 for parity tests; fp32/bf16 for speed
-    fuse_pallas: bool = True          # use pallas kernels on TPU where available
+    fuse_pallas: bool = True          # run the z-first engine (fast/) for
+    #                                 # the configurations it supports;
+    #                                 # False keeps the reference-layout
+    #                                 # engine
     halo_overlap: bool = False        # mesh DSS: overlap-scheduled halo
     #                                 # exchange (collectives issued from
     #                                 # line-only compute before interior

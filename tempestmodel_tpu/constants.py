@@ -1,6 +1,6 @@
 """Physical constants and thermodynamic conversions.
 
-TPU-native analog of the reference Tempest ``PhysicalConstants``
+JAX analog of the reference Tempest ``PhysicalConstants``
 (``src/atm/PhysicalConstants.h:121-132`` for the default values,
 ``:375-428`` for the thermodynamic conversion helpers).  Implemented as a
 frozen dataclass usable both host-side (numpy, fp64 precompute) and inside

@@ -1,6 +1,6 @@
-"""TPU fast execution engine for the nonhydrostatic core.
+"""Fast (z-first) execution engine for the nonhydrostatic core.
 
-The z-first Pallas re-expression of the Strang-HEVI step
+The z-first re-expression of the Strang-HEVI step
 (``timestep/strang.py`` + ``models/nonhydro.py`` + ``models/hyperdiff.py``
 + ``parallel/dss.py``).  The state is a DICT of per-field z-first arrays
 
@@ -11,22 +11,17 @@ with P = 6 cubed-sphere panels or 1 Cartesian panel.  Execution shape:
 
 - **vertical column operators** contract the LEADING level axis — clean
   ``(K, nz) @ (nz, P*A*B)`` GEMMs, no layout churn;
-- **one fused Pallas stage kernel** per RK stage (``stage_pallas``):
-  all horizontal derivatives, the nonlinear tendency algebra, the
-  two-term RK base combination, the penalty add AND the tracer
-  advection in one launch per (panel, A-chunk) tile;
-- **DSS as Pallas kernels** (``dss_pallas``): masked-roll pair sums +
-  static panel-edge links with covariant U/V rotation (or periodic
-  wrap-sums on Cartesian grids), one launch per field — the (U, V)
-  launch also folds in the W stage assembly and diagnostic bottom
-  boundary (``dss_uvw``);
-- **one fused Pallas implicit kernel** (``pallas_implicit``): column
-  aux -> residual -> analytic banded Jacobian -> statically-unrolled
-  no-pivot banded LU, all in VMEM, with fold-f sublane packing so every
-  LU row op fills full (f, lane) vregs; tracers solve all species
-  against one factorization (``ops/pallas_banded`` multi-RHS);
-- **fused nu4 tail kernels** (``hyper_pallas``) where the Jacobian is
-  z-constant;
+- **horizontal operators** are dense block-diagonal (A, A) GEMMs over
+  whole fields, and each RK stage's tendency algebra and base
+  combination fuse into full-field elementwise passes;
+- **DSS** (``fast/dss``): masked-roll pair sums + static panel-edge
+  links with covariant U/V rotation (or periodic wrap-sums on Cartesian
+  grids), plain JAX;
+- **implicit solve** (``fast/implicit``): column aux -> residual ->
+  analytic banded Jacobian in XLA, then the batched no-pivot banded LU
+  chosen by ``backend.banded_solve`` (a Triton-route Pallas kernel on
+  the GPU); tracers solve all species against one factorization
+  (multi-RHS);
 - **device-mesh distribution** (``mesh_dss``): the SAME per-shard
   engine under one shard_map with statically-routed point-to-point
   ppermute edge exchange (zero all-reduces) and an optional
@@ -37,8 +32,7 @@ Engine output is numerically equivalent to the reference-layout engine
 in ``tests/test_fast_engine.py`` / ``test_fast_xz.py`` /
 ``test_fast_mesh.py``), but it is NOT the bit-parity path —
 golden-parity tests keep using ``models/nonhydro.py``.  The supported
-configuration envelope is ``engine.fast_engine_supported``; the
-fast-vs-reference-layout matrix is documented in docs/PERF.md.
+configuration envelope is ``engine.fast_engine_supported``.
 """
 
 from .engine import (FastGeometry, build_fast_geometry,

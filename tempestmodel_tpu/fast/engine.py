@@ -1,4 +1,4 @@
-"""Z-first TPU engine: geometry, DSS, tendencies, Strang driver.
+"""Z-first engine: geometry, DSS, tendencies, Strang driver.
 
 Semantics are a one-to-one port of the reference-layout engine
 (``models/nonhydro.py`` horizontal/vertical dynamics,
@@ -11,9 +11,10 @@ there.  What changes here is the execution shape:
 
 so that vertical column operators are clean leading-axis GEMMs,
 horizontal derivatives are dense block-diagonal (A, A) GEMMs over the
-whole field, DSS is one Pallas kernel per field (``fast/dss_pallas``),
-and every RK combination fuses into full-field elementwise kernels.
-See ``fast/__init__`` for the kernel-count rationale and measurements.
+whole field, DSS is a few fused elementwise passes per field
+(``fast/dss``), and every RK combination fuses into full-field
+elementwise kernels.  The only hand-written kernel on the path is the
+batched banded solve of the implicit step (``backend.banded_solve``).
 """
 
 from __future__ import annotations
@@ -27,11 +28,10 @@ import jax.numpy as jnp
 
 from ..config import ModelConfig, GridKind, VerticalStaggering
 from ..constants import PhysicalConstants
-from ..grid.geometry import (CubedSphereGeometry, EDGE_LEFT, EDGE_RIGHT,
-                             EDGE_BOTTOM, EDGE_TOP)
+from ..grid.geometry import CubedSphereGeometry
 from ..models import nonhydro
 from ..timestep.explicit import ExplicitSubScheme
-from . import dss_pallas
+from . import dss as fdss
 
 FIELDS = ("U", "V", "Rt", "Rho", "W")
 
@@ -128,37 +128,18 @@ class FastGeometry:
     B: int = 0
     DA_b: Any = None
     Sd_b: Any = None
-    # Separable Gal-Chen metric factorization (``grid/geometry.py``
-    # vert_metric): con_a_xi[k] = s_k * Ca, con_b_xi[k] = s_k * Cb,
-    # con_xi_xi[k] = E + s_k^2 * F, deriv_r_a[k] = s_k * dZs/da,
-    # jac3d[k] = jacl (z-constant), with s = 1 - reta.  Lets the hot
-    # kernels read O(A*B) 2-D terrain fields + an O(nz) profile instead
-    # of full (nz, 6, A, B) metric tensors (HBM is the bottleneck).
-    # ``sep_ok`` is set only after numerical verification at build.
-    sep_ok: bool = False
-    s_lev: Any = None     # (nz, 1)
-    s_int: Any = None     # (nz+1, 1)
     # stacked [interp_n2i; diff_n2i]: the implicit prep reads U/V once
-    # for both operators (a per-stage version for the stage pre-pass was
-    # measured SLOWER — its row-slices feed Pallas operands and
-    # materialize as copies; see docs/PERF.md round-4 negative results)
+    # for both operators
     n2i_stack: Any = None         # (2*(nz+1), nz)
-    sep_ca: Any = None    # (6, A, B) each
-    sep_cb: Any = None
-    sep_e: Any = None
-    sep_f: Any = None
-    sep_da: Any = None
-    sep_db: Any = None
-    sep_jacl: Any = None
     # grid family: 6 cubed-sphere panels with edge links, or 1 Cartesian
-    # panel with per-axis periodic wrap-sums in the DSS kernels
+    # panel with per-axis periodic wrap-sums in the DSS
     npanels: int = 6
     wrap: tuple = (False, False)
     # xz slice: which ENGINE velocity slot carries the physical V whose
     # tendency is identically zero ("V" natural, "U" when ab_swapped)
     xz_zero: str = None
     # Cartesian grids with a short y extent run TRANSPOSED (x on the
-    # 128-lane axis): engine (a, b) = physical (y, x), engine U/V =
+    # minor, contiguous axis): engine (a, b) = physical (y, x), engine U/V =
     # physical V/U, fj negated — an exact relabeling of the equations
     # (orientation flip).  pack/unpack swap at the step boundary.
     ab_swapped: bool = False
@@ -166,83 +147,6 @@ class FastGeometry:
     # (reference nu_local_scale), which differs from the engine's
     # first-axis element width when ab_swapped
     nu_delta: float = None
-
-
-def _extract_separable_metric(geom):
-    """(s_lev, s_int, {2-D fields}) if the Gal-Chen factorization holds
-    numerically (relative residual < 1e-10 in fp64), else None."""
-    f64 = np.float64
-    jac = np.asarray(geom.jac3d, f64)          # (6, A, B, nz)
-    jac_i = np.asarray(geom.jac3d_int, f64)
-    if not (np.allclose(jac, jac[..., 0:1], rtol=1e-12, atol=0.0)
-            and np.allclose(jac_i, jac_i[..., 0:1], rtol=1e-12, atol=0.0)
-            and np.allclose(jac[..., 0], jac_i[..., 0], rtol=1e-12)):
-        return None
-    # s profiles from the deriv_r ratio at the point of max |dZs/da|;
-    # flat terrain -> all terrain metrics vanish identically
-    dr_a = np.asarray(geom.deriv_r, f64)[..., 0]       # (6, A, B, nz)
-    dr_a_i = np.asarray(geom.deriv_r_int, f64)[..., 0]
-    ca3 = np.asarray(geom.con_a_xi, f64)
-    cb3 = np.asarray(geom.con_b_xi, f64)
-    cx3 = np.asarray(geom.con_xi_xi, f64)
-    ca3_i = np.asarray(geom.con_a_xi_int, f64)
-    cb3_i = np.asarray(geom.con_b_xi_int, f64)
-    cx3_i = np.asarray(geom.con_xi_xi_int, f64)
-    dxr3 = np.asarray(geom.deriv_r_int, f64)[..., 2]   # (6, A, B, nz+1)
-    if not np.allclose(dxr3, dxr3[..., 0:1], rtol=1e-12, atol=0.0):
-        return None
-    dxr2 = dxr3[..., 0]                                # (6, A, B)
-
-    flat = np.argmax(np.abs(dr_a_i[..., 0]))
-    ij = np.unravel_index(flat, dr_a_i[..., 0].shape)
-    denom = dr_a_i[ij][0]
-    if abs(denom) < 1e-14:
-        # flat terrain: all terrain metrics vanish
-        s_lev = np.zeros(ca3.shape[-1])
-        s_int = np.zeros(ca3_i.shape[-1])
-        if (np.abs(ca3).max() > 0 or np.abs(cb3).max() > 0
-                or np.abs(dr_a).max() > 0):
-            return None
-        zero2 = np.zeros(dxr2.shape)
-        two_d = dict(sep_ca=zero2, sep_cb=zero2,
-                     sep_e=1.0 / (dxr2 * dxr2), sep_f=zero2,
-                     sep_da=zero2, sep_db=zero2, sep_jacl=jac[..., 0])
-        # con_xi_xi must then be exactly E on every level
-        if not (np.allclose(cx3, (1.0 / (dxr2 * dxr2))[..., None],
-                            rtol=1e-10)
-                and np.allclose(cx3_i, (1.0 / (dxr2 * dxr2))[..., None],
-                                rtol=1e-10)):
-            return None
-        return s_lev, s_int, two_d
-
-    s_int = dr_a_i[ij] / denom                         # (nz+1,), s[0]-normed
-    s_lev = dr_a[ij] / denom
-    k0 = 0                                             # reference interface
-    ca2 = ca3_i[..., k0] / s_int[k0]
-    cb2 = cb3_i[..., k0] / s_int[k0]
-    da2 = dr_a_i[..., k0] / s_int[k0]
-    db2 = np.asarray(geom.deriv_r_int, f64)[..., 1][..., k0] / s_int[k0]
-    e2 = 1.0 / (dxr2 * dxr2)
-    f2 = -(ca2 * da2 + cb2 * db2) / dxr2
-
-    def ok(full, recon):
-        scale = np.abs(full).max() + 1e-300
-        return np.abs(full - recon).max() <= 1e-10 * max(scale, 1e-30)
-
-    sl = s_lev.reshape((1, 1, 1, -1))
-    si = s_int.reshape((1, 1, 1, -1))
-    if not (ok(ca3, sl * ca2[..., None]) and ok(ca3_i, si * ca2[..., None])
-            and ok(cb3, sl * cb2[..., None])
-            and ok(cb3_i, si * cb2[..., None])
-            and ok(cx3, e2[..., None] + sl * sl * f2[..., None])
-            and ok(cx3_i, e2[..., None] + si * si * f2[..., None])
-            and ok(dr_a, sl * da2[..., None])
-            and ok(np.asarray(geom.deriv_r, f64)[..., 1],
-                   sl * db2[..., None])):
-        return None
-    two_d = dict(sep_ca=ca2, sep_cb=cb2, sep_e=e2, sep_f=f2,
-                 sep_da=da2, sep_db=db2, sep_jacl=jac[..., 0])
-    return s_lev, s_int, two_d
 
 
 def build_fast_geometry(geom: CubedSphereGeometry,
@@ -280,19 +184,7 @@ def build_fast_geometry(geom: CubedSphereGeometry,
     n2i_stack = np.concatenate([np.asarray(geom.interp_n2i, f64),
                                 np.asarray(geom.diff_n2i, f64)], axis=0)
 
-    # --- separable-metric extraction (verified numerically) -----------
-    sep = _extract_separable_metric(geom)
-    sep_fields = {}
-    if sep is not None:
-        s_lev, s_int, two_d = sep
-        sep_fields = dict(
-            sep_ok=True,
-            s_lev=jnp.asarray(s_lev.reshape(-1, 1), dtype),
-            s_int=jnp.asarray(s_int.reshape(-1, 1), dtype),
-            **{k: c(v) for k, v in two_d.items()})
-
     return FastGeometry(
-        **sep_fields,
         n2i_stack=c(n2i_stack),
         nz=nz, p=p, ne=ne, A=A, B=A, vo=geom.vo, is_xz=False, delta=delta,
         reference_length=float(geom.reference_length),
@@ -334,10 +226,9 @@ def _swap_ab_state(d):
     """(a, b)-transpose a z-first state dict and relabel U <-> V (an
     involution).  Together with ``fj -> -fj`` this is an EXACT
     relabeling of the equations (orientation flip): the engine runs in
-    (b, a) coordinates so the long Cartesian x axis lands on the
-    128-lane axis (the natural (..., A, 4) xz layout wastes 97% of every
-    vreg and forces relayout copies around each Pallas call — measured
-    1.1 ms/step of pure copies at the Schar bench size)."""
+    (b, a) coordinates so the long Cartesian x axis is the minor,
+    contiguous axis (the natural (..., A, 4) xz layout would put a
+    4-wide axis there)."""
     m = {"U": "V", "V": "U"}
     return {m.get(k, k): jnp.swapaxes(v, -2, -1) for k, v in d.items()}
 
@@ -346,8 +237,8 @@ def build_fast_geometry_cartesian(geom, dtype=jnp.float32,
                                   swap_ab=None) -> FastGeometry:
     """FastGeometry from a ``CartesianGeometry`` (xz slice or 3-D plane).
 
-    One panel, no edge links: the DSS kernels run pure pair-sums with
-    per-axis periodic wrap (``dss_pallas._pair_masks(wrap=True)``), the
+    One panel, no edge links: the DSS runs pure pair-sums with
+    per-axis periodic wrap (``fast/dss._pair_masks(wrap=True)``), the
     analog of ``GridCartesianGLL::ApplyDSS`` periodic averaging
     (``/root/reference/src/atm/GridCartesianGLL.cpp:600-660``).  Only
     periodic lateral BCs are supported here — no-flux configs keep the
@@ -486,74 +377,30 @@ def hweak_grad(f, fg: FastGeometry):
 
 
 def colop(M, f):
-    """Vertical column operator over the leading z axis.
-
-    einsum form, NOT ``(M @ f.reshape(K, -1)).reshape(...)``: the
-    explicit flatten forces a tiled-layout-changing reshape kernel on
-    TPU (~16 us each), while the einsum lowers to one dot (measured
-    3.8x faster for a colop pair)."""
+    """Vertical column operator over the leading z axis (one dot, no
+    explicit flatten of the field)."""
     return jnp.einsum("KL,L...->K...", M, f)
 
 
 # ---------------------------------------------------------------------------
-# DSS (Pallas kernels; see fast/dss_pallas.py)
+# DSS (plain JAX; see fast/dss.py)
 # ---------------------------------------------------------------------------
 
-def w_finish_xla(d, wf):
-    """XLA fallback of the fused W stage finish (``dss_uvw`` semantics):
-    W = base + dt_s * masked(dW) with the diagnostic bottom row from the
-    updated velocities.  Used by engines whose DSS cannot fold it in
-    (the mesh shard_map payload)."""
-    dW = wf["dW"].at[0].set(0.0).at[-1].set(0.0)
-    base = wf["bw1"] if wf.get("bw2") is None else (
-        wf["cb1"] * wf["bw1"] + wf["cb2"] * wf["bw2"])
-    w = base + wf["dt_s"] * dW
-    u0 = wf["c00"] * d["U"][0] + wf["c01"] * d["U"][1]
-    v0 = wf["c00"] * d["V"][0] + wf["c01"] * d["V"][1]
-    w0 = -(wf["cax0"] * u0 + wf["cbx0"] * v0) / wf["cxx0"]
-    return w.at[0].set(w0)
-
-
-def apply_dss(d, fg: FastGeometry, rayleigh=None, w_finish=None):
-    """DSS of the full fast state (U/V rotate as a covariant pair).
-
-    Four launches (vector pair + 3 scalars), NOT the one-launch
-    ``dss_pallas.dss_state``: fusing all five fields into one kernel was
-    measured SLOWER in context on v5e (+0.08 ms/call, +0.55 ms/step at
-    ne30 L30 f32) — the separate launches pipeline better against the
-    surrounding XLA kernels.  ``dss_state`` is kept as the documented
-    negative result (same bitwise output, tested).
-
-    ``w_finish``: deferred W stage finish from
-    ``stage_pallas.fused_stage(defer_w=True)`` — W is then assembled,
-    bottom-bounded and DSSed inside the (U, V) launch
-    (``dss_pallas.dss_uvw``), three launches total."""
-    if w_finish is not None:
-        u, v, w = dss_pallas.dss_uvw(d["U"], d["V"], fg.inv_mult,
-                                     fg.e_rot, fg.dss_links, fg.p,
-                                     w_finish, wrap=fg.wrap)
-        out = {"U": u, "V": v, "W": w}
-    else:
-        u, v = dss_pallas.dss_vector(d["U"], d["V"], fg.inv_mult,
-                                     fg.e_rot, fg.dss_links, fg.p,
-                                     wrap=fg.wrap)
-        out = {"U": u, "V": v,
-               "W": dss_pallas.dss_scalar(d["W"], fg.inv_mult,
-                                          fg.dss_links, fg.p,
-                                          wrap=fg.wrap)}
-    # Rt/Rho stay SEPARATE launches: the merged two-field kernel
-    # (dss_pallas.dss_scalar2) was measured slower in context on v5e
-    # (+0.4 ms/step at ne30 L30 f32, cb 2 and 4 both) — same
-    # pipelining loss as the one-launch dss_state (kept, tested)
-    for k in ("Rt", "Rho"):
-        out[k] = dss_pallas.dss_scalar(d[k], fg.inv_mult, fg.dss_links,
-                                       fg.p, wrap=fg.wrap)
+def apply_dss(d, fg: FastGeometry, rayleigh=None):
+    """DSS of the full fast state (U/V rotate as a covariant pair), then
+    the optional Rayleigh finish.  All tracer species DSS as one flat
+    scalar field; tracers are never Rayleigh-damped (reference
+    ApplyRayleighFriction)."""
+    u, v = fdss.dss_vector(d["U"], d["V"], fg.inv_mult, fg.e_rot,
+                           fg.dss_links, fg.p, wrap=fg.wrap)
+    out = {"U": u, "V": v}
+    for k in ("Rt", "Rho", "W"):
+        out[k] = fdss.dss_scalar(d[k], fg.inv_mult, fg.dss_links, fg.p,
+                                 wrap=fg.wrap)
     if rayleigh is not None:
         out = apply_rayleigh(out, *rayleigh)
     if "Tracers" in d:
-        # all species in one scalar-kernel launch (flat layout); tracers
-        # are never Rayleigh-damped (reference ApplyRayleighFriction)
-        out["Tracers"] = dss_pallas.dss_scalar(
+        out["Tracers"] = fdss.dss_scalar(
             d["Tracers"], fg.inv_mult, fg.dss_links, fg.p, wrap=fg.wrap)
     return out
 
@@ -694,14 +541,11 @@ def apply_rayleigh(d, fac, ref_term):
 
 
 def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
-                        rayleigh=None, dss_fn=None,
-                        use_fused_hyper: bool = False):
+                        rayleigh=None, dss_fn=None):
     """nu4/nu2 hyperviscosity + DSS (+ optional Rayleigh) Strang tail.
 
-    ``dss_fn(d, rayleigh=None)``: full-state DSS with an optionally FUSED
-    Rayleigh finish (single-device path fuses it into the DSS kernel).
-    ``use_fused_hyper``: run each nu4 Laplacian pass as one Pallas kernel
-    (``fast/hyper_pallas``; caller must check ``hyper_pallas.supported``)."""
+    ``dss_fn(d, rayleigh=None)``: full-state DSS with the optional
+    Rayleigh finish (the mesh engine passes its routed exchange)."""
     if dss_fn is None:
         dss_fn = lambda ds, rayleigh=None: apply_dss(ds, fg, rayleigh)
     has_tr = "Tracers" in d
@@ -753,19 +597,6 @@ def step_after_subcycle(d, dt, cfg: ModelConfig, fg: FastGeometry,
         return finish(out)
 
     # order 4: Lap pass -> DSS -> -dt * nu_local * Lap pass -> DSS
-    if use_fused_hyper:
-        from . import hyper_pallas
-        work = hyper_pallas.nu4_pass1(d, fg)
-        if has_tr:
-            from . import tracers as ftr
-            work["Tracers"] = ftr.scalar_laplacian_tr(d["Tracers"], fg)
-        work = dss_fn(work)
-        out = hyper_pallas.nu4_pass2(d, work, nu_s, nu_d, nu_v, dt, fg)
-        if has_tr:
-            out["Tracers"] = d["Tracers"] - dt * nu_s * \
-                ftr.scalar_laplacian_tr(work["Tracers"], fg)
-        return finish(out)
-
     wu, wv = vector_hyperdiff_update(d["U"], d["V"], 1.0, 1.0, fg)
     work = {
         "U": -wu, "V": -wv,
@@ -820,7 +651,7 @@ def fast_engine_supported(cfg: ModelConfig, has_tracers: bool = False,
           and cfg.vertical_staggering == VerticalStaggering.LORENZ
           and cfg.timescheme == TimestepSchemeType.STRANG
           and not cfg.explicit_vertical
-          and cfg.vertical_solver in ("banded", "pallas")
+          and cfg.vertical_solver == "banded"
           and cfg.nu_uniform_scalar == 0.0
           and cfg.nu_uniform_vector == 0.0
           and cfg.upwind_thermo)
@@ -870,8 +701,7 @@ def _rayleigh_terms(cfg: ModelConfig, geom, ref_state, fg=None):
 
 
 def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
-                implicit_fn, use_fused_stage: bool,
-                use_fused_hyper: bool = False, use_wfold: bool = False):
+                implicit_fn):
     """The Strang-HEVI step on z-first state, parameterized over the DSS
     and implicit-solve implementations so the single-device and
     shard_map-distributed engines share one driver.
@@ -892,32 +722,17 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
             lambda *xs: sum(c * x for c, x in zip(coeffs, xs)), *states)
 
     def stage(base, ueval, dt_s):
-        """base: state dict or 2-term ((c1, d1), (c2, d2)) combination
-        (folded into the fused stage kernel when available)."""
-        has_tr = "Tracers" in ueval
-        wfin = None
-        if use_fused_stage:
-            # tracers are advected INSIDE the stage kernel (they ride
-            # the same in-VMEM fluxes as Rho)
-            from .stage_pallas import fused_stage
-            if use_wfold:
-                upd, wfin = fused_stage(base, ueval, dt_s, fg, constants,
-                                        defer_w=True)
-            else:
-                upd = fused_stage(base, ueval, dt_s, fg, constants)
-        else:
-            bb = comb(*base) if isinstance(base, tuple) else base
-            tend = horizontal_tendency(ueval, fg, constants)
-            upd = axpy({k: bb[k] for k in FIELDS}, tend, dt_s)
-            upd = apply_w_boundary(upd, fg)
-            if has_tr:
-                from . import tracers as ftr
-                base_tr = (tuple((c, b["Tracers"]) for c, b in base)
-                           if isinstance(base, tuple)
-                           else base["Tracers"])
-                upd["Tracers"] = ftr.horizontal_update(
-                    base_tr, ueval, dt_s, fg)
-        return dss_fn(upd, w_finish=wfin)
+        """base: state dict or 2-term ((c1, d1), (c2, d2)) combination."""
+        bb = comb(*base) if isinstance(base, tuple) else base
+        tend = horizontal_tendency(ueval, fg, constants)
+        upd = axpy({k: bb[k] for k in FIELDS}, tend, dt_s)
+        upd = apply_w_boundary(upd, fg)
+        if "Tracers" in ueval:
+            from . import tracers as ftr
+            base_tr = (tuple((c, b["Tracers"]) for c, b in base)
+                       if isinstance(base, tuple) else base["Tracers"])
+            upd["Tracers"] = ftr.horizontal_update(base_tr, ueval, dt_s, fg)
+        return dss_fn(upd)
 
     def erk(X0):
         scheme = cfg.explicit_scheme
@@ -959,8 +774,7 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
     def tail(X):
         u4 = erk(X)
         u1 = step_after_subcycle(u4, dt, cfg, fg, rayleigh=rayleigh,
-                                 dss_fn=dss_fn,
-                                 use_fused_hyper=use_fused_hyper)
+                                 dss_fn=dss_fn)
         u0 = implicit_fn(u1, 0.5 * (1.0 + oc) * dt)
         if oc != 0.0:
             u0 = comb((0.5 * (2.0 - oc), u0), (0.5 * oc, u1))
@@ -1016,24 +830,13 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
 
     q = nonhydro.estimate_bandwidth(geom, constants)
     statics = nonhydro.band_assembly_statics(geom, q)
-    use_pallas = cfg.vertical_solver == "pallas"
     rayleigh = _rayleigh_terms(cfg, geom, ref_state, fg=fg)
-    use_fused_stage = (fg.vo == 1 and fg.p <= 8 and 8 % fg.p == 0
-                       and (fg.A % 8 == 0
-                            or (fg.A <= 8 and fg.A % fg.p == 0)))
-    # fold the W stage finish into the (U, V) DSS launch when the
-    # surface interpolant row only reads the bottom two levels
-    In0 = np.asarray(geom.interp_n2i)[0]
-    use_wfold = (use_fused_stage and len(In0) >= 2
-                 and not np.any(In0[2:]))
-    from . import hyper_pallas
-    use_fused_hyper = hyper_pallas.supported(fg, cfg)
     saux = fimp.static_aux(fg)
 
     def implicit_fn(d, dti):
         out = fimp.vertical_implicit(
             d, fg, constants, dti, q, statics,
-            newton_iters=cfg.newton_iterations, use_pallas=use_pallas,
+            newton_iters=cfg.newton_iterations,
             ref_jacobian=(cfg.jacobian_mode == "reference"), saux=saux)
         if "Tracers" in d:
             from . import tracers as ftr
@@ -1046,10 +849,7 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
 
     first_fn, step_fn = _strang_fns(
         cfg, fg, rayleigh,
-        lambda d, rayleigh=None, w_finish=None: apply_dss(
-            d, fg, rayleigh, w_finish),
-        implicit_fn, use_fused_stage, use_fused_hyper,
-        use_wfold=use_wfold)
+        lambda d, rayleigh=None: apply_dss(d, fg, rayleigh), implicit_fn)
     if fg.ab_swapped:
         # the engine runs (a, b)-transposed with U/V relabeled; the
         # public step signature keeps the natural packed layout — swap
@@ -1100,9 +900,6 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
     # geometry fields that must arrive per-shard (everything with a
     # horizontal extent); small operators stay closure constants
     BIG3 = ("c2_aa", "c2_ab", "c2_ba", "c2_bb", "jac2d", "fj", "inv_mult")
-    if fg_full.sep_ok:
-        BIG3 = BIG3 + ("sep_ca", "sep_cb", "sep_e", "sep_f",
-                       "sep_da", "sep_db", "sep_jacl")
     BIG4 = ("jac3d", "jac3d_int", "con_a_xi", "con_b_xi", "con_xi_xi",
             "con_a_xi_int", "con_b_xi_int", "con_xi_xi_int",
             "deriv_r_a", "deriv_r_b", "deriv_r_xi_int", "area3d")
@@ -1120,7 +917,6 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
 
     q = nonhydro.estimate_bandwidth(geom, constants)
     statics = nonhydro.band_assembly_statics(geom, q)
-    use_pallas = cfg.vertical_solver == "pallas"
     rayleigh = _rayleigh_terms(cfg, geom, ref_state)
     ray = {} if rayleigh is None else {"fac": rayleigh[0],
                                        "ref": rayleigh[1]}
@@ -1131,22 +927,10 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
         fg_full.dss_links, np.asarray(fg_full.e_rot), mx, my, A, p,
         fg_full.nz, overlap=cfg.halo_overlap)
 
-    use_fused_stage = (template.vo == 1 and a % 8 == 0 and p <= 8
-                       and 8 % p == 0)
-    In0 = np.asarray(geom.interp_n2i)[0]
-    use_wfold = (use_fused_stage and len(In0) >= 2
-                 and not np.any(In0[2:]))
     tr_statics = None
     if ntracers > 0:
         from . import tracers as ftr
         tr_statics = ftr._tracer_band_statics(fg_full)
-    from . import hyper_pallas
-    # evaluate the fused-hyper predicate on the LOCAL-extent template
-    # (A=a) with the full-grid Jacobians restored — one predicate for
-    # both engines instead of a duplicated inline check
-    use_fused_hyper = hyper_pallas.supported(
-        dataclasses.replace(template, jac3d=fg_full.jac3d,
-                            jac3d_int=fg_full.jac3d_int), cfg)
     sspec = {k: P(None, None, "x", "y") for k in FIELDS}
     if ntracers > 0:
         sspec = dict(sspec, Tracers=P(None, None, "x", "y"))
@@ -1155,7 +939,7 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
         def implicit_fn(d, dti):
             out = fimp.vertical_implicit(
                 d, fg_loc, constants, dti, q, statics,
-                newton_iters=cfg.newton_iterations, use_pallas=use_pallas,
+                newton_iters=cfg.newton_iterations,
                 ref_jacobian=(cfg.jacobian_mode == "reference"))
             if "Tracers" in d:
                 from . import tracers as ftr
@@ -1166,11 +950,7 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
 
         rr = None if not ray_loc else (ray_loc["fac"], ray_loc["ref"])
 
-        def dss_fn(d, rayleigh=None, w_finish=None):
-            if w_finish is not None:
-                # the packed shard_map payload has no fused W slot;
-                # finish W in XLA before the exchange
-                d = dict(d, W=w_finish_xla(d, w_finish))
+        def dss_fn(d, rayleigh=None):
             out = dss_state_fn(d, fg_loc.inv_mult)
             if rayleigh is not None:
                 # restrict the fused Rayleigh finish to the dynamics
@@ -1180,9 +960,7 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
                     {k: out[k] for k in FIELDS}, *rayleigh))
             return out
 
-        return _strang_fns(cfg, fg_loc, rr, dss_fn, implicit_fn,
-                           use_fused_stage, use_fused_hyper,
-                           use_wfold=use_wfold)
+        return _strang_fns(cfg, fg_loc, rr, dss_fn, implicit_fn)
 
     def body_first(d, gb, ray_loc):
         fg_loc = dataclasses.replace(template, **gb)
@@ -1192,8 +970,8 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
         fg_loc = dataclasses.replace(template, **gb)
         return build_fns(fg_loc, ray_loc)[1](d, carry)
 
-    # check_vma=False: the Pallas stage/implicit kernels cannot declare
-    # varying-mesh-axes metadata on their out_shapes
+    # check_vma=False: the banded-solve kernel cannot declare
+    # varying-mesh-axes metadata on its out_shapes
     ckeys = ("Rt", "W", "Rho") + (("Tracers",) if ntracers > 0 else ())
     cspec = {k: P(None, None, "x", "y") for k in ckeys}
     smap_first = jax.shard_map(body_first, mesh=mesh,
@@ -1260,10 +1038,10 @@ def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None):
     """Jitted IMEX-ARK step on the z-first engine: z-last state ->
     z-last state (drop-in for ``nh_model.make_nh_imex_step``, single
     device).  Reuses the z-first tendency (with the penalty upwinding
-    folded), the Pallas DSS, the fused Pallas implicit and the nu4
-    tail; stage combinations follow ``timestep/imex.py`` exactly
-    (reference ``TimestepSchemeARS343.cpp`` etc).  The pack/unpack
-    transposes at the step boundary cost ~2% of the step."""
+    folded), the DSS, the banded implicit solve and the nu4 tail; stage
+    combinations follow ``timestep/imex.py`` exactly (reference
+    ``TimestepSchemeARS343.cpp`` etc).  Pack/unpack transposes run at
+    the step boundary."""
     import math as _math
     from . import implicit as fimp
     from ..timestep.imex import _tableaux
@@ -1277,11 +1055,8 @@ def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None):
         fg = build_fast_geometry(geom, dtype=cfg.dtype)
     q = nonhydro.estimate_bandwidth(geom, constants)
     statics = nonhydro.band_assembly_statics(geom, q)
-    use_pallas = cfg.vertical_solver == "pallas"
     rayleigh = _rayleigh_terms(cfg, geom, ref_state, fg=fg)
     saux = fimp.static_aux(fg)
-    from . import hyper_pallas
-    use_fused_hyper = hyper_pallas.supported(fg, cfg)
 
     def tend(u):
         return horizontal_tendency(u, fg, constants)
@@ -1292,12 +1067,11 @@ def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None):
     def implicit(u, dti):
         return fimp.vertical_implicit(
             u, fg, constants, dti, q, statics,
-            newton_iters=cfg.newton_iterations, use_pallas=use_pallas,
+            newton_iters=cfg.newton_iterations,
             ref_jacobian=(cfg.jacobian_mode == "reference"), saux=saux)
 
     def tail(u):
-        return step_after_subcycle(u, dt, cfg, fg, rayleigh=rayleigh,
-                                   use_fused_hyper=use_fused_hyper)
+        return step_after_subcycle(u, dt, cfg, fg, rayleigh=rayleigh)
 
     def axpy(b, t, c):
         return tree_map(lambda x, y: x + c * y, b, t)

@@ -4,8 +4,8 @@ Port of ``models/nonhydro._column_residual`` / ``assemble_bands_analytic``
 / ``vertical_banded.banded_newton_update`` to the leading-channel layout:
 every column operator application is a clean ``(K, nz) @ (nz, ncol)``
 GEMM, the Newton system interleave is a reshape (not a gather), and the
-banded solve reuses the Pallas kernel (``ops/pallas_banded``) unchanged —
-its ``(n, 2q+1, ncol)`` layout is native here.
+banded solve (``backend.banded_solve``) takes the ``(n, 2q+1, ncol)``
+layout this produces natively.
 
 Semantics (including the ``ref_jacobian`` reference-Jacobian mode and the
 AD-subgradient sign conventions) match the reference-layout path; see the
@@ -14,8 +14,6 @@ docstrings there for the C++ citations.
 
 from __future__ import annotations
 
-import numpy as np
-import jax
 import jax.numpy as jnp
 
 from ..models.nonhydro import exner_from_rhotheta
@@ -25,8 +23,8 @@ from .engine import FastGeometry
 def static_aux(fg: FastGeometry):
     """The state-independent flattened-metric entries of the implicit
     aux dict.  Precompute ONCE per configuration (engine factories call
-    this at build time) — evaluating it inside the jitted step costs ~8
-    tiled-layout-changing reshapes of (nz, 6, A, B) tensors per call."""
+    this at build time) instead of reshaping the metric tensors inside
+    every jitted step."""
     def fl(f):
         return f.reshape(f.shape[0], -1)
 
@@ -318,69 +316,18 @@ def _deinterleave(dx, nz):
     return d_rt, d_w, d_rho
 
 
-def _pick_col_tile(ncol: int) -> int:
-    """Largest 128-multiple divisor of ncol up to 768 (no padding copy of
-    the (n, 2q+1, ncol) bands inside the solve; VMEM double-buffering caps
-    the tile); 512 if none divides."""
-    best = 0
-    for k in range(1, 7):
-        t = 128 * k
-        if ncol % t == 0:
-            best = t
-    return best if best else 512
-
-
 def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
-                      newton_iters: int = 1, use_pallas: bool = True,
-                      ref_jacobian: bool = False, saux=None):
+                      newton_iters: int = 1, ref_jacobian: bool = False,
+                      saux=None):
     """Batched Newton-banded implicit update of (Rt, W, Rho).
 
     ``saux``: precomputed ``static_aux(fg)`` (hoists the constant metric
     flattening out of the jitted step)."""
-    from ..ops.pallas_banded import banded_solve_pallas
-    from ..models.vertical_banded import banded_solve_t
+    from ..backend import banded_solve
 
     nz = fg.nz
     shp = d["U"].shape[1:]
     x0_parts, aux = _prep_aux(d, fg, saux)
-    ncol = x0_parts[0].shape[1]
-
-    fused = (use_pallas and fg.vo == 1 and statics["has_penalty"]
-             and _pick_col_tile(ncol) >= 128)
-    if fused:
-        from . import pallas_implicit as pim
-        # Sublane-packed kernel (the round-4 diagnosed fix,
-        # docs/PERF.md): fold 8 column subtiles into the sublane dim so
-        # each banded-LU row op is a full (8, lane) vreg slab instead of
-        # a 1/8-utilized row vector.  With the BANDED operator
-        # application (pallas_implicit module docstring) the kernel has
-        # no MXU dots left, so f=8 — optimal for the LU — wins outright
-        # (measured 0.64 ms vs 1.89 unfolded / 1.75 dense-f8 /
-        # 1.33 dense-f4 at ne30 L30 f32 true-f32 precision).
-        ps = pim.pack_statics(statics, dtype=np.float32
-                              if x0_parts[0].dtype == jnp.float32
-                              else np.float64, fold=8)
-        mats = {
-            "interp_n2i": fg.interp_n2i, "interp_i2n": fg.interp_i2n,
-            "diff_n2i": fg.diff_n2i, "diff_i2n": fg.diff_i2n,
-            "diffdiff_i2i": fg.diffdiff_i2i,
-            "penalty_left": fg.penalty_left,
-            "penalty_right": fg.penalty_right,
-            "wscat_left": fg.wscat_left, "wscat_right": fg.wscat_right,
-        }
-        ct = _pick_col_tile(ncol)
-        x_parts = x0_parts
-        for it in range(newton_iters):
-            d_rt, d_w, d_rho = pim.fused_implicit_update(
-                x_parts, x0_parts, aux, mats, ps, dt, constants,
-                ref_jacobian=ref_jacobian, newton_time_term=(it > 0),
-                col_tile=ct, lane_tile=256)
-            x_parts = (x_parts[0] - d_rt, x_parts[1] - d_w,
-                       x_parts[2] - d_rho)
-        rt, w, rho = x_parts
-        return dict(d, Rt=rt.reshape((nz,) + shp),
-                    W=w.reshape((nz + 1,) + shp),
-                    Rho=rho.reshape((nz,) + shp))
 
     x_parts = x0_parts
     for _ in range(newton_iters):
@@ -389,11 +336,7 @@ def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
         f = _interleave(f_rt, f_w, f_rho, nz)
         bands = assemble_bands(x_parts, aux, fg, statics, constants, dt,
                                ref_jacobian=ref_jacobian)
-        if use_pallas:
-            dx = banded_solve_pallas(bands, f, q,
-                                     col_tile=_pick_col_tile(f.shape[1]))
-        else:
-            dx = banded_solve_t(bands, f, q)
+        dx = banded_solve(bands, f, q)
         d_rt, d_w, d_rho = _deinterleave(dx, nz)
         x_parts = (x_parts[0] - d_rt, x_parts[1] - d_w,
                    x_parts[2] - d_rho)

@@ -1,6 +1,6 @@
 """Mesh-distributed DSS for the z-first fast engine.
 
-The TPU-native analog of the reference's per-patch-pair exchange buffers
+The analog of the reference's per-patch-pair exchange buffers
 (``/root/reference/src/atm/Connectivity.h:67``, ``Connectivity.cpp:47-749``):
 every message between two devices is computed STATICALLY from the cube
 edge table (``grid/geometry.edge_meta``) and the mesh shape, grouped per
@@ -18,7 +18,7 @@ horizontal axes.  All five state fields ride in one exchange payload,
 stacked along the leading (level) axis, so one Strang-stage DSS costs
 one round-set of ppermutes regardless of field count.
 
-Semantics are the exact DSS of ``fast/dss_pallas`` (pair sums, then
+Semantics are the exact DSS of ``fast/dss`` (pair sums, then
 panel-edge adds with the covariant U/V rotation of
 ``TransformHaloVelocities``, ``GridPatchCSGLL.cpp:1783``, then 1/mult
 normalization); sharded and single-device trajectories agree to
@@ -227,7 +227,7 @@ def make_state_dss_mesh(edge_meta, e_rot, mx: int, my: int, A: int,
     BEFORE the O(volume) interior pair-sum compute, so XLA's async
     collectives (collective-permute-start/done) and the latency-hiding
     scheduler can run the exchange concurrently with interior compute —
-    the TPU analog of the reference's Isend-early / Wait-late overlap
+    the analog of the reference's Isend-early / Wait-late overlap
     (``/root/reference/src/atm/Grid.cpp:627-665``,
     ``Connectivity.cpp:928``).  Results are BITWISE equal to the inline
     schedule (``tests/test_fast_mesh.py::test_overlap_schedule_bit_equal``).

@@ -1,9 +1,9 @@
 """Tracer transport for the z-first fast engine.
 
 Tracers ride the fast state as ONE flat field ``Tracers`` of shape
-``(ntr * nz, 6, A, B)`` (species-major), so the per-stage DSS is a
-single scalar-kernel launch for all species and every elementwise
-update is one fused pass.
+``(ntr * nz, 6, A, B)`` (species-major), so the per-stage DSS is one
+scalar DSS call for all species and every elementwise update is one
+fused pass.
 
 Semantics are the reference-layout tracer path of
 ``models/nonhydro.py`` (horizontal weak-form advective flux in
@@ -20,7 +20,6 @@ reference-layout engine is pinned at 1e-11 fp64 in
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from .engine import FastGeometry, colop, hweak_div
@@ -39,9 +38,8 @@ def _tile_levels(f, ntr):
 
 def _bcast_mul(f, tr, ntr):
     """f (nz, P, A, B) * tr (ntr*nz, P, A, B) without materializing the
-    species-tiled f: a 5-D broadcast multiply XLA fuses (the explicit
-    ``_tile_levels`` broadcast cost ~0.75 ms/step at ne30 +3 tracers),
-    then a FREE leading-dim merge back to the flat layout."""
+    species-tiled f: a 5-D broadcast multiply XLA fuses, then a free
+    leading-dim merge back to the flat layout."""
     t5 = tr.reshape((ntr,) + f.shape)
     return (f[None] * t5).reshape(tr.shape)
 
@@ -51,7 +49,7 @@ def horizontal_update(base_tr, ueval, dt_s, fg: FastGeometry):
     tracers (the ``horizontal_tendency`` tracer rows, z-first).
 
     ``base_tr``: flat tracer field or 2-term ((c1, t1), (c2, t2)) RK
-    combination (mirrors the fused stage kernel's base handling)."""
+    combination."""
     u, v = ueval["U"], ueval["V"]
     tr = ueval["Tracers"]
     ntr = _ntr(tr, fg.nz)
@@ -123,18 +121,25 @@ def update_column_tracers(d, w_new, fg: FastGeometry, dt, statics=None):
     reuse across species (z-first port of
     ``nonhydro.update_column_tracers``): the species share one band
     matrix per column, so all right-hand sides are stacked on a species
-    axis and solved in ONE multi-RHS banded kernel — the elimination
+    axis and solved in ONE multi-RHS banded solve — the elimination
     runs once per column and each species only pays the substitution
     (the reference's DGETRF-once / DGETRS-per-species,
     ``VerticalDynamicsFEM.cpp:3783-4262``).
 
     Solved BANDED (half-bandwidth ~2*vo; tridiagonal at vo=1) via the
-    same no-pivot banded machinery as the main implicit solve — the
-    dense batched formulation costs ~70x more at ne30 L30."""
-    from ..models.vertical_banded import banded_solve_multi_t
-    from ..ops.pallas_banded import banded_solve_multi_pallas
-    import jax as _jax
+    same no-pivot banded machinery as the main implicit solve."""
+    from ..backend import banded_solve_multi
 
+    tr_f, bands, F, q_tr = tracer_system(d, w_new, fg, dt, statics)
+    sol = banded_solve_multi(bands, F, q_tr)
+    return (tr_f - jnp.moveaxis(sol, 1, 0)).reshape(d["Tracers"].shape)
+
+
+def tracer_system(d, w_new, fg: FastGeometry, dt, statics=None):
+    """(tr_f, bands, F, q): the species-flattened tracers (ntr, nz, Q),
+    the shared band matrix (nz, 2q+1, Q) and the multi-RHS residual
+    (nz, ntr, Q) of the implicit tracer update, and its half-bandwidth;
+    the update is ``tr_f - solve(bands, F)``."""
     nz = fg.nz
     tr = d["Tracers"]
     ntr = _ntr(tr, nz)
@@ -192,13 +197,7 @@ def update_column_tracers(d, w_new, fg: FastGeometry, dt, statics=None):
                  + jnp.einsum("KL,tLq->Ktq", fg.penalty_right, tr_f)
                  * wr[:, None])
 
-    use_pallas = (_jax.default_backend() != "cpu"
-                  and Q % 128 == 0)
-    if use_pallas:
-        sol = banded_solve_multi_pallas(bands, F, q_tr)
-    else:
-        sol = banded_solve_multi_t(bands, F, q_tr)
-    return (tr_f - jnp.moveaxis(sol, 1, 0)).reshape(tr.shape)
+    return tr_f, bands, F, q_tr
 
 
 def filter_column(tr, fg: FastGeometry):

@@ -1,6 +1,6 @@
 """Cartesian-plane GLL grid geometry (x-z slice and doubly-periodic 3D).
 
-TPU-native analog of the reference ``GridCartesianGLL`` /
+JAX analog of the reference ``GridCartesianGLL`` /
 ``GridPatchCartesianGLL::EvaluateGeometricTerms``
 (``src/atm/GridPatchCartesianGLL.cpp:197-460``): flat 2D metric, beta-plane
 Coriolis, and the "6th-order decay" terrain-following vertical coordinate.

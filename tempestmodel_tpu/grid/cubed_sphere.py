@@ -1,6 +1,6 @@
 """Equiangular cubed-sphere coordinate and vector transforms.
 
-TPU-native analog of the reference ``src/atm/CubedSphereTrans.{h,cpp}``.
+JAX analog of the reference ``src/atm/CubedSphereTrans.{h,cpp}``.
 Vectorized numpy/jnp implementations (the reference is pointwise scalar
 C++).  Panel convention matches the reference: panels 0-3 equatorial
 (centered at lon 0, pi/2, pi, 3pi/2), panel 4 north polar, panel 5 south

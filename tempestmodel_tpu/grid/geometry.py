@@ -1,6 +1,6 @@
 """Cubed-sphere GLL grid geometry: node coordinates, metric terms, DSS tables.
 
-TPU-native re-design of the reference Tempest grid layer
+JAX re-design of the reference Tempest grid layer
 (``src/atm/GridCSGLL.cpp``, ``src/atm/GridPatchCSGLL.cpp:295-578``
 ``EvaluateGeometricTerms``).  Instead of per-patch C++ objects, all geometry
 is precomputed host-side (numpy float64) into a single pytree of arrays with

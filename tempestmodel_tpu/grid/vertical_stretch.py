@@ -1,6 +1,6 @@
 """Vertical stretch maps for non-uniform level placement.
 
-TPU-native port of the reference ``src/atm/VerticalStretch.h:26-145``
+JAX port of the reference ``src/atm/VerticalStretch.h:26-145``
 (selected by ``--vstretch``): callables reta -> (reta_stretch, d/dreta)
 fed to the vertical-coordinate builder (``ops/column_ops.py``).
 """

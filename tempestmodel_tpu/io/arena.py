@@ -1,6 +1,6 @@
 """ctypes bindings for the native arena serialization library.
 
-TPU-native analog of the reference ``DataContainer`` arena
+JAX analog of the reference ``DataContainer`` arena
 (``src/base/DataContainer.{h,cpp}``) used by the composite checkpoint: a
 C++ library (``native/arena.cpp``) packs named arrays into one contiguous
 64-byte-aligned buffer with per-array checksums and multithreaded memcpy.

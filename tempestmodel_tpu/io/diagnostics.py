@@ -1,6 +1,6 @@
 """Checksums, error norms, and conservation diagnostics.
 
-TPU-native analogs of the reference verification machinery:
+JAX analogs of the reference verification machinery:
   - ``GridPatch::Checksum`` (``src/atm/GridPatch.cpp:745-930``):
     area-weighted Sum / L1 / L2 / Linf over all stored nodes.
   - ``Model::ComputeErrorNorms`` (``src/atm/Model.cpp:695-782``):

@@ -1,6 +1,6 @@
 """Interpolation from the cubed-sphere GLL grid to a regular lat-lon grid.
 
-TPU-native analog of ``Grid::ReduceInterpolate`` +
+JAX analog of ``Grid::ReduceInterpolate`` +
 ``OutputManagerReference`` (``src/atm/OutputManagerReference.cpp:304-760``,
 ``src/atm/Grid.cpp:507-611``): instead of per-rank partial sums MPI-reduced
 to rank 0, a precomputed static gather + GLL basis contraction evaluates

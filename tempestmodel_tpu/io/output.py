@@ -1,6 +1,6 @@
 """Output managers: scheduling, checksums, reference-grid output, restart.
 
-TPU-native analogs of the reference output stack:
+JAX analogs of the reference output stack:
 - ``OutputManager`` scheduling (``src/atm/OutputManager.{h,cpp}``):
   fixed-interval triggering with ``IsOutputNeeded``-style logic.
 - ``OutputManagerChecksum`` (``src/atm/OutputManagerChecksum.cpp``):

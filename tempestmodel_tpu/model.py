@@ -1,6 +1,6 @@
 """Top-level model driver: component registry + main time loop.
 
-TPU-native analog of the reference ``Model`` class (``src/atm/Model.{h,cpp}``):
+JAX analog of the reference ``Model`` class (``src/atm/Model.{h,cpp}``):
 owns the grid/geometry, timestep scheme, test case, output managers and
 workflow (physics) processes; ``go()`` is the ``Model::Go()`` main loop
 (``Model.cpp:316-518``) with per-phase timers and output scheduling;
@@ -152,9 +152,9 @@ class Model:
                                                       mesh=mesh,
                                                       geom=self.geom))
                 if use_fast:
-                    # z-first Pallas engine (fast/): same step semantics,
-                    # ~4x the reference-layout engine on TPU (docs/PERF.md);
-                    # with a mesh, the same engine under shard_map
+                    # z-first engine (fast/): same step semantics as the
+                    # reference-layout engine; with a mesh, the same
+                    # engine under shard_map
                     from . import fast
                     ntr = (self.state["Tracers"].shape[0]
                            if has_tr else 0)
@@ -305,7 +305,7 @@ class Model:
 
         The reference accumulates ``FunctionTimer("HorizontalStep")`` etc.
         inside the step (``Model.cpp:520-689``); under ``jit`` the step is
-        ONE fused XLA program, so the TPU-native analog compiles each
+        ONE fused XLA program, so the JAX analog compiles each
         phase standalone and times it.  Standalone timings over-count
         fusion boundaries relative to the fused step — use them to RANK
         phases, not as absolute accounting.  Returns {phase: ms}.
@@ -324,7 +324,7 @@ class Model:
             dss_state = nh_model.make_cartesian_dss(geom)
         solver = cfg.vertical_solver
         from .config import VerticalStaggering
-        if (solver in ("banded", "pallas")
+        if (solver == "banded"
                 and cfg.vertical_staggering == VerticalStaggering.LORENZ):
             q = nonhydro.estimate_bandwidth(geom, constants)
             statics = nonhydro.band_assembly_statics(geom, q)

@@ -1,6 +1,6 @@
 """Advection equation set: passive tracer transport in a prescribed wind.
 
-TPU-native analog of the reference ``EquationSet::AdvectionEquations``
+JAX analog of the reference ``EquationSet::AdvectionEquations``
 (``src/atm/EquationSet.cpp:30-45``: zero prognostic components, tracers
 only).  The wind is supplied by the test case as covariant (U, V) fields
 (optionally a callable of time); tracers advance with the same variational

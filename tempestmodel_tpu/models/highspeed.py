@@ -1,6 +1,6 @@
 """HighSpeedDynamics: momentum-form SE-horizontal / FD-vertical dycore.
 
-TPU-native re-design of the reference's ``--hmethod hs`` path
+JAX re-design of the reference's ``--hmethod hs`` path
 (``src/atm/HighSpeedDynamics.{h,cpp}``), the second acoustic-implicit
 dynamics variant:
 

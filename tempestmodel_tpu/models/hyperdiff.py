@@ -1,6 +1,6 @@
 """Scalar and vector (hyper)diffusion for the SE dynamics.
 
-TPU-native equivalent of
+JAX equivalent of
 ``HorizontalDynamicsFEM::ApplyScalarHyperdiffusion`` (reference
 ``src/atm/HorizontalDynamicsFEM.cpp:1867-2205``),
 ``ApplyVectorHyperdiffusion`` (``:2207-2420``) and the nu4 orchestration of

@@ -1,6 +1,6 @@
 """Batched Jacobian-free Newton-Krylov for the HEVI column system.
 
-TPU-native analog of the reference's hand-rolled JFNK
+JAX analog of the reference's hand-rolled JFNK
 (``JacobianFreeNewtonKrylov.h:31-120``: restarted GMRES with Givens
 rotations and finite-difference directional derivatives, selected by the
 ``USE_JFNK_GMRES`` compile flag in ``Defines.h:25-35``).

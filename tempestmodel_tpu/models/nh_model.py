@@ -103,10 +103,8 @@ def make_sphere_dss(geom, mesh=None) -> Callable:
         from ..parallel.dss_shardmap import make_sphere_dss_shardmap
         dss_s, dss_v = make_sphere_dss_shardmap(geom, mesh)
     else:
-        # single-device path: the slice/scatter formulation — measured
-        # FASTEST of four TPU formulations at ne30 L30 (full-step
-        # ms/step: 43.6 scatter / 49.3 combined-scatter / 69.6
-        # row-gather / 126.5 concat; see parallel/dss_gather.py)
+        # single-device path: the slice/scatter formulation (the
+        # scatter-minimal variant is parallel/dss_gather.py)
         dss_s = lambda f: sphere_dss.apply_dss_scalar(f, geom)
         dss_v = lambda u, v: sphere_dss.apply_dss_vector(u, v, geom)
 

@@ -1,6 +1,6 @@
 """Compressible nonhydrostatic dynamics (RhoTheta-Pi formulation, Lorenz).
 
-TPU-native re-design of the reference's nonhydrostatic core:
+JAX re-design of the reference's nonhydrostatic core:
 
 - horizontal tendencies: ``HorizontalDynamicsFEM::StepNonhydrostaticPrimitive``
   (``src/atm/HorizontalDynamicsFEM.cpp:701-1786``), vector-invariant form in
@@ -995,10 +995,10 @@ def vertical_implicit(state, geom, constants, dt, newton_iters: int = 1,
 
     One Newton step with the AD-exact Jacobian; ``solver`` selects the
     dense per-column LU (robust; tests) or the banded-coloring path
-    (TPU fast path; see ``vertical_banded``).  Reference: ``StepImplicit``
+    (the fast path; see ``vertical_banded``).  Reference: ``StepImplicit``
     (``VerticalDynamicsFEM.cpp:1230-1464``) with USE_DIRECTSOLVE.
 
-    ``ref_jacobian``: on the banded/pallas path, assemble the reference's
+    ``ref_jacobian``: on the banded path, assemble the reference's
     approximate Jacobian entry-for-entry instead of the exact one (see
     :func:`assemble_bands_analytic`) — single-Newton solves then match
     the reference's bit-for-bit, the long-horizon parity mode.
@@ -1030,7 +1030,7 @@ def vertical_implicit(state, geom, constants, dt, newton_iters: int = 1,
             return _column_residual(x, a, gmats, constants, dt, nz)
 
     x = x0
-    if solver in ("banded", "pallas"):
+    if solver == "banded":
         from . import vertical_banded as vb
 
         def batched_resid(xs):
@@ -1049,7 +1049,6 @@ def vertical_implicit(state, geom, constants, dt, newton_iters: int = 1,
 
         for _ in range(newton_iters):
             x = vb.banded_newton_update(batched_resid, x, q, nz,
-                                        use_pallas=(solver == "pallas"),
                                         multi_jvp=multi_jvp,
                                         bands_fn=bands_fn)
     elif solver == "schur":
@@ -1094,7 +1093,7 @@ def vertical_implicit(state, geom, constants, dt, newton_iters: int = 1,
     else:
         raise ValueError(
             f"unknown vertical solver {solver!r}: expected 'banded', "
-            "'pallas', 'schur', 'jfnk', or 'dense'")
+            "'schur', 'jfnk', or 'dense'")
 
     n = nz + 1 if stagger == "CPH" else nz
     n_w = nz if stagger == "LEV" else nz + 1

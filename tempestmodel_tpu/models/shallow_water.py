@@ -1,6 +1,6 @@
 """Shallow-water spectral-element dynamics on the cubed sphere.
 
-TPU-native re-design of the reference
+JAX re-design of the reference
 ``HorizontalDynamicsFEM::StepShallowWater``
 (``src/atm/HorizontalDynamicsFEM.cpp:321-640``): the vector-invariant
 shallow-water equations in covariant equiangular components,

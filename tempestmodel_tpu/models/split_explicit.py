@@ -1,6 +1,6 @@
 """Split-explicit (acoustic-substepped) nonhydrostatic dynamics.
 
-TPU-native re-design of the reference's WRF/Klemp-Wilhelmson family
+JAX re-design of the reference's WRF/Klemp-Wilhelmson family
 (``SplitExplicitDynamics.{h,cpp}``, driver ``TimestepSchemeSplitExp.cpp``,
 selected by ``--hmethod SPEX --timescheme spex``):
 
@@ -15,12 +15,12 @@ selected by ``--hmethod SPEX --timescheme spex``):
 - the vertical acoustic update is implicit and off-centered
   (beta_s = 0.1, ``:1247``), trapezoidal in the vertical fast operator.
 
-TPU-first deviations (documented intentionally, not bugs):
+Deliberate deviations (documented intentionally, not bugs):
 - the reference Schur-reduces the vertical acoustic system to a
   tridiagonal in W with finite-difference z-derivatives
   (``:1250-1340``); here the UNREDUCED linear system
   (I + ts L_v) x'' = r over (Rt', W', Rho') is solved directly with the
-  batched banded machinery (``vertical_banded``/``ops.pallas_banded``)
+  batched banded machinery (``vertical_banded``/``backend.banded_solve``)
   using the same spectral-element column operators as the rest of the
   framework, with L_v the analytic fast-only Jacobian.  Same math,
   no reduction step, and the solve vectorizes over every column.
@@ -40,7 +40,8 @@ from ..ops import sem
 from . import nonhydro
 from . import hyperdiff
 from .nonhydro import colop
-from .vertical_banded import interleave_perm, banded_solve_t
+from .vertical_banded import interleave_perm
+from ..backend import banded_solve
 from ..timestep.explicit import erk_substep
 
 
@@ -149,7 +150,6 @@ def make_acoustic_loop(cfg: ModelConfig, geom, q: int,
     nz = geom.nz
     nea, neb, p = geom.nea, geom.neb, geom.p
     da, db = geom.delta_a, geom.delta_b
-    use_pallas = cfg.vertical_solver == "pallas"
     perm = jnp.asarray(interleave_perm(nz))
     inv_perm = jnp.argsort(perm)
 
@@ -223,11 +223,7 @@ def make_acoustic_loop(cfg: ModelConfig, geom, q: int,
             rhs = (x_inc + dtau * (t_col + dh_col) - ts_e * lv_x)
             rhs = rhs * wmask_col[None, :]
             rhs_t = rhs[:, perm].T                    # (n, ncol)
-            if use_pallas:
-                from ..ops.pallas_banded import banded_solve_pallas
-                sol_t = banded_solve_pallas(bands_A, rhs_t, q)
-            else:
-                sol_t = banded_solve_t(bands_A, rhs_t, q)
+            sol_t = banded_solve(bands_A, rhs_t, q)
             sol = sol_t.T[:, inv_perm]                # (ncol, n)
 
             new = {

@@ -1,6 +1,6 @@
 """Shallow-water model driver: config -> geometry + jitted step function.
 
-TPU-native analog of the reference ``Model`` + ``TimestepSchemeStrang``
+JAX analog of the reference ``Model`` + ``TimestepSchemeStrang``
 wiring for the 2D equation set (vertical dynamics stubbed, so a Strang step
 reduces to: explicit RK stages with DSS after each stage, then the nu4
 hyperviscosity tail -- exactly ``TimestepSchemeStrang::Step``,

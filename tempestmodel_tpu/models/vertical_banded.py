@@ -1,6 +1,6 @@
 """Batched banded Newton solve for the HEVI vertical implicit system.
 
-TPU-native replacement of the reference's per-column LAPACK ``DGBSV`` path
+Batched replacement of the reference's per-column LAPACK ``DGBSV`` path
 (``VerticalDynamicsFEM.cpp:1437-1464``, bandwidth table ``:165-200``):
 
 - the column unknowns are permuted to the interleaved ordering
@@ -13,10 +13,9 @@ TPU-native replacement of the reference's per-column LAPACK ``DGBSV`` path
 - the banded systems are solved by a no-pivot banded LU via ``lax.scan``
   over rows, vectorized across all columns.
 
-TPU layout note: all banded tensors keep the huge column axis LAST
-(lanes-aligned); the row/diagonal axes are major.  Storing the diagonal
-axis minor instead pads 2q+1 -> 128 lanes (a ~14x memory blowup measured
-at ne30 L30) — this layout is the difference between ~1 s and ~ms.
+Layout: all banded tensors keep the huge column axis LAST (minor and
+contiguous: one column per GPU thread reads coalesced); the row/diagonal
+axes are major.
 """
 
 from __future__ import annotations
@@ -184,13 +183,11 @@ def banded_solve_multi_t(bands, rhs, q: int):
 
 
 def banded_newton_update(batched_resid, x0, q: int, nz: int,
-                         use_pallas: bool = False, multi_jvp=None,
-                         bands_fn=None):
-    """One Newton step x0 - J^-1 F(x0) using the banded path.
+                         multi_jvp=None, bands_fn=None):
+    """One Newton step x0 - J^-1 F(x0) using the banded path (the solve
+    implementation is ``backend.banded_solve``'s platform choice).
 
-    ``use_pallas``: solve with the fused Pallas TPU kernel
-    (``ops/pallas_banded``, 2.3x the XLA scan on v5e) instead of the
-    lax.scan formulation.  ``multi_jvp``: hand-fused band extraction.
+    ``multi_jvp``: hand-fused band extraction.
     ``bands_fn``: x -> (n, 2q+1, ncol) analytic band assembly (fastest:
     no tangent sweeps at all; see ``nonhydro.assemble_bands_analytic``).
     """
@@ -202,9 +199,6 @@ def banded_newton_update(batched_resid, x0, q: int, nz: int,
     else:
         bands = extract_bands_t(batched_resid, x0, q, perm, inv_perm,
                                 multi_jvp=multi_jvp)
-    if use_pallas:
-        from ..ops.pallas_banded import banded_solve_pallas
-        dx_p = banded_solve_pallas(bands, f, q)
-    else:
-        dx_p = banded_solve_t(bands, f, q)            # (n, ncol)
+    from ..backend import banded_solve
+    dx_p = banded_solve(bands, f, q)                  # (n, ncol)
     return x0 - dx_p.T[:, inv_perm]

@@ -1,6 +1,6 @@
 """Schur-complement vertical implicit solve.
 
-TPU-native analog of ``VerticalDynamicsSchur`` (``--vmethod SCHUR``,
+JAX analog of ``VerticalDynamicsSchur`` (``--vmethod SCHUR``,
 ``VerticalDynamicsSchur.cpp:1395-1770``): the W unknowns are eliminated
 through the DIAGONAL of the W-W Jacobian block (the reference divides by
 ``dDG[MatFIx(FWIx,i,FWIx,i)]`` only, ``:1640-1660`` — off-diagonal W-W

@@ -1,13 +1,13 @@
 """Vertical (column) finite-element operator matrices.
 
-TPU-native analog of the reference's matrix-form 1-D column operators
+JAX analog of the reference's matrix-form 1-D column operators
 (``src/atm/LinearColumnOperatorFEM.{h,cpp}``, ``src/atm/GridGLL.cpp:279-360``
 for which variants are instantiated, ``src/atm/GridGLL.cpp:470-550`` for the
 vertical coordinate).  Everything here is host-side float64 numpy run once at
 model build; the resulting small dense matrices are contracted against the
 level axis of (panel, A, B, nz) fields inside jit (one batched matmul per
-operator application — exactly what the TPU MXU wants, vs the reference's
-per-column sparse row loops).
+operator application — one dense GEMM, vs the reference's per-column
+sparse row loops).
 
 Conventions: a column field on "nodes" (model levels) has nz entries; on
 "redges" (interfaces) nz+1.  Operators are dense matrices M with

@@ -1,6 +1,6 @@
 """DG flux-correction (flux reconstruction) derivative weights.
 
-TPU-native analog of ``FluxCorrectionFunction::GetDerivatives``
+JAX analog of ``FluxCorrectionFunction::GetDerivatives``
 (``src/atm/FluxCorrectionFunction.{h,cpp}``): computes the derivative of
 the order-``itype`` flux-correction function g(x) on [0, 1] at given nodes.
 

@@ -1,16 +1,23 @@
-"""Pallas TPU kernel: batched no-pivot banded LU solve.
+"""Pallas kernel (Triton route): batched no-pivot banded LU solve.
 
 The "batched Thomas/banded vertical solver" of the north star
 (BASELINE.json): each of ~1e5 independent column systems (the HEVI
-vertical implicit Newton systems, half-bandwidth q) is solved entirely in
-VMEM.  The row recurrence runs in on-chip ``fori_loop``s over a
-column-tile, so the whole solve is ONE kernel launch instead of an XLA
-scan of 2n dependent HBM-roundtrip steps.
+vertical implicit Newton systems, half-bandwidth q) is solved by one GPU
+thread.  A program owns ``block`` consecutive columns and walks the rows
+in a loop, keeping the last q U-rows and forward values in registers, so
+the whole solve is ONE kernel launch instead of the XLA scan of 2n
+dependent steps (``models/vertical_banded.banded_solve_t``).  The U
+factor and the forward solution go to two scratch outputs that the back
+substitution reads again.
 
-Layout contract matches ``models/vertical_banded.banded_solve_t``:
-bands (n, 2q+1, ncol) with band[i, d] = A[i, i+d-q], rhs (n, ncol).
-Out-of-range band entries must be zero (guaranteed by the extractor) —
-the kernel exploits this so no masking is needed at the boundaries.
+Layout contract matches ``banded_solve_t``: bands (n, 2q+1, ncol) with
+band[i, d] = A[i, i+d-q], rhs (n, ncol).  Out-of-range band entries must
+be zero (guaranteed by the assemblers).  Columns past ``ncol`` in the
+last program are masked: they load an identity row and store nothing, so
+no padded copy of the bands is made.
+
+``interpret=True`` runs the same kernel in the Pallas interpreter (CPU
+tests); the platform choice lives in ``tempestmodel_tpu.backend``.
 """
 
 from __future__ import annotations
@@ -20,183 +27,102 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 
-def _banded_kernel(q, n, bands_ref, rhs_ref, out_ref, u_ref, y_ref):
-    """Forward elimination + back substitution for one column tile.
+def _solve_kernel(q, n, ncol, block, R, bands_ref, rhs_ref,
+                  out_ref, u_ref, y_ref):
+    """Forward elimination once per column, then R back substitutions.
 
-    u_ref: (n, q+1, tile) U-factor rows; y_ref: (n, tile) forward solution.
-    """
-    dtype = bands_ref.dtype
+    ``rhs_ref``/``out_ref``/``y_ref``: (n, R, ncol); ``u_ref``:
+    (n, q+1, ncol).  Every value handled is a (block,) vector, one lane
+    per column (Triton tensors must have power-of-two extents, and 2q+1
+    and R are not)."""
+    cols = pl.program_id(0) * block + jnp.arange(block)
+    live = cols < ncol
+    dtype = out_ref.dtype
+    one = jnp.ones((block,), dtype)
+    zero = jnp.zeros((block,), dtype)
 
-    # Boundary rows read clamped (not-yet-written) scratch entries with a
-    # zero multiplier; initialize so 0 * x and 0 / x stay finite.
-    u_ref[...] = jnp.zeros_like(u_ref)
-    u_ref[:, 0, :] = jnp.ones_like(u_ref[:, 0, :])
-    y_ref[...] = jnp.zeros_like(y_ref)
-    out_ref[...] = jnp.zeros_like(out_ref)
+    def ld(ref, *idx, other=0.0):
+        return plt.load(ref.at[idx + (cols,)], mask=live, other=other)
 
-    def fwd(i, _):
-        w = bands_ref[i]                       # (2q+1, tile)
-        y_i = rhs_ref[i]                       # (tile,)
+    def st(ref, val, *idx):
+        plt.store(ref.at[idx + (cols,)], val, mask=live)
+
+    def fwd(i, carry):
+        u_prev, y_prev = carry     # q U-rows of q+1 vectors; q rows of R
+        w = [ld(bands_ref, i, d, other=1.0 if d == q else 0.0)
+             for d in range(2 * q + 1)]
+        y = [ld(rhs_ref, i, r) for r in range(R)]
         for t in range(q):
-            # eliminate column i-q+t using U row (i-q+t); for i-q+t < 0 the
-            # band entry w[t] is zero so the clamped read is harmless
-            row = jnp.maximum(i - q + t, 0)
-            u_prev = u_ref[row]                # (q+1, tile)
-            f = w[t] / u_prev[0]
-            # static-slice concat (Mosaic has no scatter-add on values)
-            w = jnp.concatenate(
-                [w[:t + 1],
-                 w[t + 1:t + q + 1] - f[None, :] * u_prev[1:],
-                 w[t + q + 1:]], axis=0)
-            y_i = y_i - f * y_ref[row]
-        u_ref[i] = w[q:]
-        y_ref[i] = y_i
-        return 0
+            # eliminate column i-q+t with U row i-q+t; before row q the
+            # dummy identity rows and the zero band entry make it a no-op
+            f = w[t] / u_prev[t][0]
+            for k in range(q):
+                w[t + 1 + k] = w[t + 1 + k] - f * u_prev[t][1 + k]
+            y = [y[r] - f * y_prev[t][r] for r in range(R)]
+        u_i = tuple(w[q:])
+        for k in range(q + 1):
+            st(u_ref, u_i[k], i, k)
+        for r in range(R):
+            st(y_ref, y[r], i, r)
+        return u_prev[1:] + (u_i,), y_prev[1:] + (tuple(y),)
 
-    jax.lax.fori_loop(0, n, fwd, 0)
+    ident = (one,) + (zero,) * q
+    jax.lax.fori_loop(0, n, fwd, ((ident,) * q, ((zero,) * R,) * q))
 
-    def bwd(j, _):
+    def bwd(j, x_next):            # x_next[d]: solution row i+1+d
         i = n - 1 - j
-        u_i = u_ref[i]                         # (q+1, tile)
-        acc = y_ref[i]
-        for d in range(q):
-            # rows beyond n-1: u_i[d+1] is zero there (band guarantee)
-            nxt = jnp.minimum(i + d + 1, n - 1)
-            acc = acc - u_i[d + 1] * out_ref[nxt]
-        out_ref[i] = acc / u_i[0]
-        return 0
+        u = [ld(u_ref, i, k, other=1.0 if k == 0 else 0.0)
+             for k in range(q + 1)]
+        x_i = []
+        for r in range(R):
+            acc = ld(y_ref, i, r)
+            for d in range(q):
+                acc = acc - u[d + 1] * x_next[d][r]
+            x_i.append(acc / u[0])
+            st(out_ref, x_i[r], i, r)
+        return (tuple(x_i),) + x_next[:-1]
 
-    jax.lax.fori_loop(0, n, bwd, 0)
-
-
-def _banded_multi_kernel(q, n, R, bands_ref, rhs_ref, out_ref, u_ref,
-                         y_ref):
-    """Forward elimination ONCE per column + back substitution for R
-    right-hand sides sharing the band matrix (the reference's
-    DGETRF-once / DGETRS-per-species tracer update,
-    ``VerticalDynamicsFEM.cpp:4028-4262``).
-
-    rhs_ref/out_ref: (n, R, tile); u_ref: (n, q+1, tile); y_ref:
-    (n, R, tile).
-    """
-    u_ref[...] = jnp.zeros_like(u_ref)
-    u_ref[:, 0, :] = jnp.ones_like(u_ref[:, 0, :])
-    y_ref[...] = jnp.zeros_like(y_ref)
-    out_ref[...] = jnp.zeros_like(out_ref)
-
-    def fwd(i, _):
-        w = bands_ref[i]                       # (2q+1, tile)
-        y_i = rhs_ref[i]                       # (R, tile)
-        for t in range(q):
-            row = jnp.maximum(i - q + t, 0)
-            u_prev = u_ref[row]                # (q+1, tile)
-            f = w[t] / u_prev[0]               # (tile,)
-            w = jnp.concatenate(
-                [w[:t + 1],
-                 w[t + 1:t + q + 1] - f[None, :] * u_prev[1:],
-                 w[t + q + 1:]], axis=0)
-            y_i = y_i - f[None, :] * y_ref[row]
-        u_ref[i] = w[q:]
-        y_ref[i] = y_i
-        return 0
-
-    jax.lax.fori_loop(0, n, fwd, 0)
-
-    def bwd(j, _):
-        i = n - 1 - j
-        u_i = u_ref[i]                         # (q+1, tile)
-        acc = y_ref[i]                         # (R, tile)
-        for d in range(q):
-            nxt = jnp.minimum(i + d + 1, n - 1)
-            acc = acc - u_i[d + 1][None, :] * out_ref[nxt]
-        out_ref[i] = acc / u_i[0][None, :]
-        return 0
-
-    jax.lax.fori_loop(0, n, bwd, 0)
+    jax.lax.fori_loop(0, n, bwd, ((zero,) * R,) * q)
 
 
-def banded_solve_multi_pallas(bands, rhs, q: int, col_tile: int = 512,
-                              interpret: bool = None):
-    """Solve the batched banded systems for R shared-matrix RHS in one
-    kernel: ``bands`` (n, 2q+1, ncol), ``rhs`` (n, R, ncol) ->
-    (n, R, ncol).  The elimination runs ONCE per column; each RHS only
-    pays the forward/backward substitution."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
+def banded_solve_multi_pallas(bands, rhs, q: int, block: int = 128,
+                              interpret: bool = False):
+    """Solve the batched banded systems for R shared-matrix right-hand
+    sides in one kernel: ``bands`` (n, 2q+1, ncol), ``rhs`` (n, R, ncol)
+    -> (n, R, ncol).  The elimination runs ONCE per column; each RHS only
+    pays the substitutions (the reference's DGETRF-once /
+    DGETRS-per-species tracer update, ``VerticalDynamicsFEM.cpp:4028-4262``).
+    ``block``: columns per program, a power of two (one column per
+    thread of the program's 4 warps at the default 128)."""
     n, b, ncol = bands.shape
     R = rhs.shape[1]
-    assert b == 2 * q + 1 and rhs.shape == (n, R, ncol)
-    if ncol % col_tile != 0:
-        pad = col_tile - ncol % col_tile
-        bands = jnp.pad(bands, ((0, 0), (0, 0), (0, pad)))
-        bands = bands.at[:, q, ncol:].set(1.0)
-        rhs = jnp.pad(rhs, ((0, 0), (0, 0), (0, pad)))
-        out = banded_solve_multi_pallas(bands, rhs, q, col_tile, interpret)
-        return out[:, :, :ncol]
-
-    grid = (ncol // col_tile,)
-    kernel = functools.partial(_banded_multi_kernel, q, n, R)
-    return pl.pallas_call(
+    if b != 2 * q + 1 or rhs.shape != (n, R, ncol):
+        raise ValueError(f"bands {bands.shape} / rhs {rhs.shape} do not "
+                         f"match half-bandwidth q={q}")
+    if block & (block - 1):
+        raise ValueError(f"block={block} is not a power of two")
+    dtype = bands.dtype
+    kernel = functools.partial(_solve_kernel, q, n, ncol, block, R)
+    out, _, _ = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((n, b, col_tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n, R, col_tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((n, R, col_tile), lambda i: (0, 0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n, R, ncol), bands.dtype),
-        scratch_shapes=[
-            pltpu.VMEM((n, q + 1, col_tile), bands.dtype),
-            pltpu.VMEM((n, R, col_tile), bands.dtype),
-        ],
+        grid=(pl.cdiv(ncol, block),),
+        out_shape=(jax.ShapeDtypeStruct((n, R, ncol), dtype),
+                   jax.ShapeDtypeStruct((n, q + 1, ncol), dtype),
+                   jax.ShapeDtypeStruct((n, R, ncol), dtype)),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(bands, rhs)
+        name="banded_solve",
+    )(bands, rhs.astype(dtype))
+    return out
 
 
-def banded_solve_pallas(bands, rhs, q: int, col_tile: int = 512,
-                        interpret: bool = None):
-    """Solve the batched banded systems with one Pallas kernel.
-
-    ``bands``: (n, 2q+1, ncol); ``rhs``: (n, ncol) -> (n, ncol).
-    Pads ``ncol`` up to a multiple of ``col_tile`` internally.
-    ``interpret``: force interpreter mode (auto: on for CPU backend).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    n, b, ncol = bands.shape
-    assert b == 2 * q + 1
-    if ncol % col_tile != 0:
-        pad = col_tile - ncol % col_tile
-        bands = jnp.pad(bands, ((0, 0), (0, 0), (0, pad)))
-        # padded columns get identity diagonals to avoid 0/0
-        bands = bands.at[:, q, ncol:].set(1.0)
-        rhs = jnp.pad(rhs, ((0, 0), (0, pad)))
-        out = banded_solve_pallas(bands, rhs, q, col_tile, interpret)
-        return out[:, :ncol]
-
-    grid = (ncol // col_tile,)
-    kernel = functools.partial(_banded_kernel, q, n)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((n, b, col_tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n, col_tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((n, col_tile), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n, ncol), bands.dtype),
-        scratch_shapes=[
-            pltpu.VMEM((n, q + 1, col_tile), bands.dtype),
-            pltpu.VMEM((n, col_tile), bands.dtype),
-        ],
-        interpret=interpret,
-    )(bands, rhs)
+def banded_solve_pallas(bands, rhs, q: int, block: int = 128,
+                        interpret: bool = False):
+    """Single right-hand side: ``bands`` (n, 2q+1, ncol), ``rhs``
+    (n, ncol) -> (n, ncol)."""
+    return banded_solve_multi_pallas(bands, rhs[:, None], q, block=block,
+                                     interpret=interpret)[:, 0]

@@ -1,6 +1,6 @@
 """Gauss and Gauss-Lobatto quadrature + Lagrange interpolation utilities.
 
-TPU-native analog of the reference Tempest numerics substrate
+JAX analog of the reference Tempest numerics substrate
 (``src/base/GaussQuadrature.cpp``, ``src/base/GaussLobattoQuadrature.cpp``,
 ``src/base/PolynomialInterp.cpp``, ``src/base/LegendrePolynomial.cpp``).
 

@@ -1,6 +1,6 @@
 """Spectral-element tensor-product derivative operators.
 
-TPU-native core of the reference's GLL stencil loops
+JAX core of the reference's GLL stencil loops
 (``src/atm/HorizontalDynamicsFEM.cpp:840-841`` and the per-node inner loops
 at ``:701-1786``): instead of scalar gather loops per GLL node, fields with
 the element-stacked layout (npanel, A, B, ...) are reshaped to expose the
@@ -84,9 +84,9 @@ def weak_div(fa, fb, Smat, nea: int, neb: int, p: int,
 #
 # The per-element (p, p) contractions can be expressed as ONE dense matmul
 # against a block-diagonal (A, A) operator (blocks = the p x p element
-# matrix).  On TPU this maps the whole derivative onto a single MXU GEMM
-# with perfect layouts instead of ne^2 tiny batched contractions; the extra
-# zero-block FLOPs are free (the op is HBM-bandwidth-bound).
+# matrix).  This maps the whole derivative onto a single GEMM instead of
+# ne^2 tiny batched contractions; the extra zero-block FLOPs are cheap
+# (the op is memory-bandwidth-bound).
 # ---------------------------------------------------------------------------
 
 def block_diag_operator(M, ne: int):

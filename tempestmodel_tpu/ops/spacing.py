@@ -1,6 +1,6 @@
 """1-D grid spacing generators.
 
-TPU-native analog of the reference ``GridSpacing`` hierarchy
+JAX analog of the reference ``GridSpacing`` hierarchy
 (``src/atm/GridSpacing.{h,cpp}``): vectorized generators for the node/edge
 coordinates and normalized areas of the four spacing families used by the
 vertical (and horizontal) discretizations:

@@ -1,6 +1,6 @@
 """Direct stiffness summation (DSS) on the cubed-sphere GLL grid.
 
-TPU-native equivalent of the reference's halo exchange + edge averaging
+JAX equivalent of the reference's halo exchange + edge averaging
 (``GridCSGLL::ApplyDSS``, ``src/atm/GridCSGLL.cpp:435-780``, and the MPI
 ``ExchangeBufferRegistry``, ``src/atm/Connectivity.cpp``).
 

@@ -1,14 +1,9 @@
 """Scatter-minimal DSS: slice pair-sums + ONE combined edge scatter.
 
 The naive slice/scatter DSS in ``dss.py`` is algebraically right but
-lowers to ~840 full-buffer ``dynamic-update-slice`` ops per model step
-on TPU (measured: ~8.8 GB/step of pure buffer rewriting at ne30 L30),
+lowers to many full-buffer ``dynamic-update-slice`` ops per model step,
 because every one of the 24 panel edges is a separate ``.at[].add`` on
-a full field.  Three alternative formulations measured WORSE on real
-TPU hardware (full-bench ms/step at ne30 L30 f32): row-gather tables
-(69.6 vs 43.6 — short-row gathers amplify HBM traffic ~30x),
-pure-concatenate reconstruction (126.5 — thin concat pieces), and 0/1
-matmul pair-sums at f32-highest precision (50.3 — 3-pass MXU cost).
+a full field.
 
 What this module does instead:
 
@@ -21,12 +16,10 @@ What this module does instead:
      ``.at[edge].add`` rewrites;
   3. a fused multiply by 1/multiplicity.
 
-OUTCOME: even this variant measured 49.3 ms/step vs 43.6 for the naive
-scatter DSS — XLA's in-context handling of the 24 static edge updates
-beats the general scatter path on v5e.  The model therefore KEEPS
-``dss.py`` on the hot path; this module is retained as the documented
-record of the exploration, and its roundoff-equality tests
-(``tests/test_dss.py``) double as an independent spec of the DSS
+The model keeps ``dss.py`` on the reference-layout hot path (this
+variant was not faster in full-step timing); this module is retained as
+an independent specification of the DSS operator: its roundoff-equality
+tests (``tests/test_dss.py``) pin the same
 operator (corner accumulation included).
 
 Vector pairs transform with the per-edge 2x2 covariant matrices applied

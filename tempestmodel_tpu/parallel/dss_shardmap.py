@@ -5,7 +5,7 @@ wasteful: the auto-partitioner replicates whole fields (per
 ``parallel/analyze.py``, a full Strang step at ne8 L10 on a (2,4) mesh
 moves 4.8x the state size in collectives, dominated by volume-sized
 all-gathers).  The reference exchanges only O(surface) halo slabs
-(``src/atm/Connectivity.cpp:928-1100``); this module is the TPU-native
+(``src/atm/Connectivity.cpp:928-1100``); this module is the JAX
 equivalent with explicitly chosen collectives:
 
 - **interior element-boundary pair sums** that straddle shard boundaries

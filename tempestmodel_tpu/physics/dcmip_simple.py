@@ -1,6 +1,6 @@
 """Reed-Jablonowski (2012) DCMIP "simple physics" package.
 
-TPU-native port of ``test/dcmip2016/interface/simple_physics_v6.f90``
+JAX port of ``test/dcmip2016/interface/simple_physics_v6.f90``
 (wrapped by ``test/dcmip2016/DCMIPPhysics.cpp``): large-scale condensation,
 Smith-Vogl surface fluxes (implicit), and Ekman boundary-layer diffusion
 solved with the Thomas algorithm — all batched over every column.

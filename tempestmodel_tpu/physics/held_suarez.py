@@ -1,6 +1,6 @@
 """Held-Suarez (1994) idealized physics as a WorkflowProcess.
 
-TPU-native port of the reference ``HeldSuarezPhysics``
+JAX port of the reference ``HeldSuarezPhysics``
 (``src/atm/HeldSuarezPhysics.{h,cpp}``): backward-Euler boundary-layer
 Rayleigh friction on the horizontal velocity and Newtonian relaxation of
 temperature to the radiative-equilibrium profile, applied to the RhoTheta

@@ -1,6 +1,6 @@
 """Kessler (1969) warm-rain microphysics, batched over all columns.
 
-TPU-native port of the DCMIP2016 Kessler kernel
+JAX port of the DCMIP2016 Kessler kernel
 (reference ``test/dcmip2016/interface/kessler.f90``, wrapped by
 ``test/dcmip2016/KesslerPhysics.cpp``): autoconversion/accretion,
 saturation adjustment, rain evaporation, and subcycled upstream rain

@@ -1,6 +1,6 @@
 """'Terminator' toy chemistry (DCMIP2016 test 3).
 
-TPU-native port of the reference Fortran kernel
+JAX port of the reference Fortran kernel
 (``test/dcmip2016/interface/Terminator.f90``, wrapped by
 ``test/dcmip2016/TerminatorPhysics.cpp``): Cl/Cl2 photolytic toy chemistry
 with an exact local solution; Cly = Cl + 2*Cl2 is conserved exactly, which

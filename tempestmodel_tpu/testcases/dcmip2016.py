@@ -1,6 +1,6 @@
 """DCMIP2016 test cases (moist idealized cases on the sphere).
 
-TPU-native ports of the reference Fortran initializers
+JAX ports of the reference Fortran initializers
 (``test/dcmip2016/interface/*.f90`` wrapped by
 ``test/dcmip2016/*Test.cpp``): analytic height-coordinate evaluations
 vectorized over the whole grid (the Fortran per-point fixed-point

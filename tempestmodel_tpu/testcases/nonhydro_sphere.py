@@ -1,6 +1,6 @@
 """Nonhydrostatic sphere test cases.
 
-TPU-native ports of the reference ``test/nonhydro_sphere/`` battery.
+JAX ports of the reference ``test/nonhydro_sphere/`` battery.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Cartesian x-z slice nonhydrostatic test cases.
 
-TPU-native ports of the reference ``test/nonhydro_xz/`` battery: pointwise
+JAX ports of the reference ``test/nonhydro_xz/`` battery: pointwise
 initial/reference state evaluators over (x, z) converted to the prognostic
 state dict (U, V, Rt, W, Rho) with Lorenz staggering.
 """

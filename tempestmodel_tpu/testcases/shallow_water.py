@@ -1,6 +1,6 @@
 """Shallow-water sphere test cases.
 
-TPU-native ports of the reference's shallow-water test battery
+JAX ports of the reference's shallow-water test battery
 (``test/shallowwater_sphere/``): each case is a pointwise initial/reference
 state evaluator over (lon, lat) arrays that gets converted to covariant
 velocities on the cubed-sphere grid (the analog of

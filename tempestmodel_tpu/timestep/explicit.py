@@ -1,6 +1,6 @@
 """Explicit Runge-Kutta sub-schemes used inside Strang/ERK stepping.
 
-TPU-native equivalent of the explicit branches of
+JAX equivalent of the explicit branches of
 ``TimestepSchemeStrang::Step`` (reference
 ``src/atm/TimestepSchemeStrang.cpp:460-690``) and the stage-combination
 constants (``:55-140``).  The reference juggles 5 persistent state

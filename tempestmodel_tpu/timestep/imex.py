@@ -1,6 +1,6 @@
 """IMEX additive Runge-Kutta (ARK) schemes in U-form.
 
-TPU-native equivalent of the reference ARK family
+JAX equivalent of the reference ARK family
 (``src/atm/TimestepSchemeARS222/ARS232/ARK232/ARS343/ARS443/SSP3332.cpp``).
 The reference reconstructs stage tendencies through LinearCombineData
 tricks over 5-9 data instances; here the explicit tendencies F(u_j) and
@@ -92,7 +92,7 @@ def make_imex_step(cfg: ModelConfig, geom, dss_state: Callable,
     constants = cfg.constants
     dt = cfg.dt
 
-    if cfg.vertical_solver in ("banded", "pallas"):
+    if cfg.vertical_solver == "banded":
         q = nonhydro.estimate_bandwidth(geom, constants)
         band_statics = nonhydro.band_assembly_statics(geom, q)
     else:
@@ -161,7 +161,7 @@ def _make_gark2_step(cfg: ModelConfig, geom, dss_state: Callable,
     constants = cfg.constants
     dt = cfg.dt
 
-    if cfg.vertical_solver in ("banded", "pallas"):
+    if cfg.vertical_solver == "banded":
         q = nonhydro.estimate_bandwidth(geom, constants)
         band_statics = nonhydro.band_assembly_statics(geom, q)
     else:

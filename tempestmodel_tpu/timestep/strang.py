@@ -1,6 +1,6 @@
 """Strang-split HEVI timestep scheme.
 
-TPU-native equivalent of ``TimestepSchemeStrang::Step``
+JAX equivalent of ``TimestepSchemeStrang::Step``
 (``src/atm/TimestepSchemeStrang.cpp:450-674``): on the first step an
 implicit vertical half-step; afterwards the previous implicit increment is
 carried over (``m_dCarryoverCombination``); then the explicit RK substep
@@ -64,7 +64,7 @@ def make_strang_step(cfg: ModelConfig, geom, dss_state: Callable,
 
     from ..config import VerticalStaggering
     lorenz = cfg.vertical_staggering == VerticalStaggering.LORENZ
-    if cfg.vertical_solver in ("banded", "pallas") and lorenz:
+    if cfg.vertical_solver == "banded" and lorenz:
         q = nonhydro.estimate_bandwidth(geom, constants)
         band_statics = nonhydro.band_assembly_statics(
             geom, q, upwind_thermo=cfg.upwind_thermo)

@@ -1,6 +1,6 @@
 """Semi-analytic linear mountain-wave solutions on the sphere.
 
-TPU-native analog of the reference ``util/MountainWavesSphere`` tools:
+JAX analog of the reference ``util/MountainWavesSphere`` tools:
 
 - :func:`generate_evolution_matrix` / :func:`compute_wave_modes` mirror
   ``ComputeWaveModes.cpp`` (``GenerateEvolutionMatrix`` :33-180,

@@ -1,6 +1,6 @@
 """Post-processing utilities over lat-lon model output (.npz).
 
-TPU-native analogs of the reference ``util/`` CLI tools:
+JAX analogs of the reference ``util/`` CLI tools:
 - ``extract_surface``: 2-D slices at a level / height from 3-D output
   (ref ``util/ExtractSurface/ExtractSurface.cpp``).
 - ``zonal_temporal_average``: zonal + time mean across a series of output
@@ -68,8 +68,13 @@ def zonal_temporal_average(paths):
 
 
 def to_cf_dataset(data: dict):
-    """Convert one output dict to a CF-style xarray Dataset (if available)."""
-    import xarray as xr
+    """Convert one output dict to a CF-style xarray Dataset (needs the
+    optional ``xarray`` package; nothing else in the package imports it)."""
+    try:
+        import xarray as xr
+    except ImportError as e:
+        raise ImportError("to_cf_dataset needs the optional xarray "
+                          "package, which is not installed") from e
     coords = {"lat": ("lat", np.rad2deg(data["lat"]),
                       {"units": "degrees_north", "standard_name": "latitude"}),
               "lon": ("lon", np.rad2deg(data["lon"]),

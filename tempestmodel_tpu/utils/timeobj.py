@@ -1,6 +1,6 @@
 """Model time and calendar handling.
 
-TPU-native analog of the reference ``src/base/TimeObj.{h,cpp}``: a ``Time``
+JAX analog of the reference ``src/base/TimeObj.{h,cpp}``: a ``Time``
 value type with calendar-aware arithmetic and parsing of duration strings
 like ``"200s"``, ``"30d"``, ``"1.5h"`` used by ``--dt`` / ``--endtime``.
 

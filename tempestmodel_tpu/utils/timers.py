@@ -1,6 +1,6 @@
 """Per-phase wall-clock timers with device synchronization.
 
-TPU-native analog of the reference ``FunctionTimer`` RAII group timers
+JAX analog of the reference ``FunctionTimer`` RAII group timers
 (``src/base/FunctionTimer.{h,cpp}``) and the end-of-run report
 (``src/atm/Model.cpp:520-689``): named groups accumulate total time and
 entry counts; ``report()`` prints mean/min/max per group.  Device work is

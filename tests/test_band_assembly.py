@@ -4,7 +4,7 @@
 banded matrix as the (2q+1)-coloring AD extraction
 (``vertical_banded.extract_bands_t``) of the column residual — it is the
 analytic analog of the reference's hand-coded ``BuildJacobianF``
-(``src/atm/VerticalDynamicsFEM.cpp:3191``), used as the TPU fast path.
+(``src/atm/VerticalDynamicsFEM.cpp:3191``), used as the fast path.
 """
 
 import numpy as np

@@ -1,18 +1,19 @@
-"""Pallas DSS kernels vs the reference gather/scatter DSS formulation.
+"""The z-first DSS (``fast/dss.py``) vs the reference-layout DSS
+formulations: ``parallel/dss.py`` on the cubed sphere, and
+``grid/cartesian.apply_dss_cartesian`` (periodic wrap-sums) on the plane.
 
-The fast engine's equality tests cover these kernels end-to-end; this
-file pins them in isolation (including the one-launch ``dss_state``
-variant kept as a documented measured-negative-result, and its fused
-Rayleigh finish).
+The fast engine's equality tests cover the DSS end-to-end; this file
+pins it in isolation.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
+import pytest
 
 from tempestmodel_tpu.config import ModelConfig, GridKind
+from tempestmodel_tpu.grid.cartesian import apply_dss_cartesian
 from tempestmodel_tpu.models import nh_model
-from tempestmodel_tpu.fast import engine, dss_pallas
+from tempestmodel_tpu.fast import engine, dss
 from tempestmodel_tpu.parallel import dss as ref_dss
 
 
@@ -30,7 +31,7 @@ def _setup(ne=4, nz=6):
 
 def test_dss_scalar_matches_reference_formulation():
     geom, fg, d = _setup()
-    out = dss_pallas.dss_scalar(d["Rt"], fg.inv_mult, fg.dss_links, fg.p)
+    out = dss.dss_scalar(d["Rt"], fg.inv_mult, fg.dss_links, fg.p)
     # reference-layout formulation on the z-last field
     want = ref_dss.apply_dss_scalar(jnp.moveaxis(d["Rt"], 0, -1), geom)
     np.testing.assert_allclose(np.asarray(jnp.moveaxis(out, 0, -1)),
@@ -39,8 +40,8 @@ def test_dss_scalar_matches_reference_formulation():
 
 def test_dss_vector_matches_reference_formulation():
     geom, fg, d = _setup()
-    u, v = dss_pallas.dss_vector(d["U"], d["V"], fg.inv_mult, fg.e_rot,
-                                 fg.dss_links, fg.p)
+    u, v = dss.dss_vector(d["U"], d["V"], fg.inv_mult, fg.e_rot,
+                          fg.dss_links, fg.p)
     wu, wv = ref_dss.apply_dss_vector(jnp.moveaxis(d["U"], 0, -1),
                                       jnp.moveaxis(d["V"], 0, -1), geom)
     np.testing.assert_allclose(np.asarray(jnp.moveaxis(u, 0, -1)),
@@ -49,79 +50,45 @@ def test_dss_vector_matches_reference_formulation():
                                np.asarray(wv), rtol=0, atol=1e-13)
 
 
-def test_dss_scalar2_two_field_variant():
-    """dss_scalar2 == two dss_scalar launches bitwise (kept as a
-    documented measured-negative launch-merge variant)."""
-    _, fg, d = _setup()
-    a, b = dss_pallas.dss_scalar2(d["Rt"], d["Rho"], fg.inv_mult,
-                                  fg.dss_links, fg.p)
-    np.testing.assert_array_equal(
-        np.asarray(a), np.asarray(dss_pallas.dss_scalar(
-            d["Rt"], fg.inv_mult, fg.dss_links, fg.p)))
-    np.testing.assert_array_equal(
-        np.asarray(b), np.asarray(dss_pallas.dss_scalar(
-            d["Rho"], fg.inv_mult, fg.dss_links, fg.p)))
+def test_dss_link_table_needs_one_link_per_edge():
+    _, fg, _ = _setup(ne=2, nz=1)
+    links = fg.dss_links
+    with pytest.raises(ValueError, match="two links"):
+        dss._link_tables(links + links[:1], 6)
+    with pytest.raises(ValueError, match="exactly one link"):
+        dss._link_tables(links[1:], 6)
 
 
-def test_dss_uvw_w_finish_fold():
-    """dss_uvw == dss_vector + XLA W finish + dss_scalar(W)."""
-    _, fg, d = _setup()
-    rng = np.random.default_rng(5)
-    nz1 = d["W"].shape[0]
-    shp = d["W"].shape
-    wf = {
-        "bw1": jnp.asarray(rng.standard_normal(shp)),
-        "bw2": jnp.asarray(rng.standard_normal(shp)),
-        "cb1": 0.3, "cb2": 0.7, "dt_s": 12.5,
-        "dW": jnp.asarray(rng.standard_normal(shp)),
-        "cax0": fg.con_a_xi_int[0], "cbx0": fg.con_b_xi_int[0],
-        "cxx0": fg.con_xi_xi_int[0],
-        "c00": float(np.asarray(fg.interp_n2i)[0, 0]),
-        "c01": float(np.asarray(fg.interp_n2i)[0, 1]),
-    }
-    u, v, w = dss_pallas.dss_uvw(d["U"], d["V"], fg.inv_mult, fg.e_rot,
-                                 fg.dss_links, fg.p, wf)
-    uw, vw = dss_pallas.dss_vector(d["U"], d["V"], fg.inv_mult, fg.e_rot,
-                                   fg.dss_links, fg.p)
-    w_pre = engine.w_finish_xla(d, wf)
-    ww = dss_pallas.dss_scalar(w_pre, fg.inv_mult, fg.dss_links, fg.p)
-    np.testing.assert_array_equal(np.asarray(u), np.asarray(uw))
-    np.testing.assert_array_equal(np.asarray(v), np.asarray(vw))
-    np.testing.assert_allclose(np.asarray(w), np.asarray(ww),
+@pytest.mark.parametrize("nex,ney,swap", [(5, 3, False), (6, 1, True)])
+def test_dss_periodic_wrap_matches_cartesian(nex, ney, swap):
+    """One panel, no links: pair sums with the periodic wrap on both
+    axes, in the engine's natural and (a, b)-transposed layouts."""
+    nz = 3
+    cfg = ModelConfig(grid_kind=GridKind.CARTESIAN_3D, nex=nex, ney=ney,
+                      order=4, nz=nz, x_extent=(0.0, 1e5),
+                      y_extent=(0.0, 6e4),
+                      ztop=1e4, dt=1.0, dtype=jnp.float64)
+    geom = nh_model.build_nh_cartesian_geometry(
+        cfg, ztop=1e4, bc_x="periodic", bc_y="periodic")
+    fg = engine.build_fast_geometry_cartesian(geom, dtype=jnp.float64,
+                                              swap_ab=swap)
+    assert fg.wrap == (True, True) and fg.dss_links == ()
+    rng = np.random.default_rng(nex)
+    f = rng.standard_normal((1, nex * 4, ney * 4, nz))       # z-last
+    want = np.asarray(apply_dss_cartesian(jnp.asarray(f), geom))
+    zf = np.moveaxis(f, -1, 0)                               # z-first
+    if swap:
+        zf = np.swapaxes(zf, 2, 3)
+    got = np.asarray(dss.dss_scalar(jnp.asarray(zf), fg.inv_mult,
+                                    fg.dss_links, fg.p, wrap=fg.wrap))
+    back = np.swapaxes(got, 2, 3) if swap else got
+    np.testing.assert_allclose(np.moveaxis(back, 0, -1), want,
                                rtol=0, atol=1e-13)
-
-
-def test_dss_state_one_launch_variant():
-    """dss_state == the 4-launch apply_dss bitwise, with and without the
-    fused Rayleigh finish."""
-    _, fg, d = _setup()
-    want = engine.apply_dss(d, fg)
-    got = dss_pallas.dss_state(d, fg.inv_mult, fg.e_rot, fg.dss_links,
-                               fg.p)
-    for k in engine.FIELDS:
-        np.testing.assert_array_equal(np.asarray(got[k]),
-                                      np.asarray(want[k]))
-
-    rng = np.random.default_rng(1)
-    fac = {k: jnp.asarray(rng.uniform(0.5, 1.0, d[k].shape)) for k in d}
-    ref = {k: jnp.asarray(rng.standard_normal(d[k].shape)) for k in d}
-    got = dss_pallas.dss_state(d, fg.inv_mult, fg.e_rot, fg.dss_links,
-                               fg.p, rayleigh=(fac, ref))
-    for k in engine.FIELDS:
-        np.testing.assert_allclose(
-            np.asarray(got[k]), np.asarray(fac[k] * want[k] + ref[k]),
-            rtol=0, atol=1e-13)
-
-
-def test_dss_state_block_picker_odd_nz():
-    """The z-block picker must never produce a fully out-of-range block
-    for the nz-level fields (a fully-OOB Pallas block is illegal on
-    TPU); exercised across awkward nz values."""
-    for nz in (1, 2, 3, 5, 8):
-        _, fg, d = _setup(nz=nz)
-        want = engine.apply_dss(d, fg)
-        got = dss_pallas.dss_state(d, fg.inv_mult, fg.e_rot,
-                                   fg.dss_links, fg.p)
-        for k in engine.FIELDS:
-            np.testing.assert_array_equal(np.asarray(got[k]),
-                                          np.asarray(want[k]))
+    # a vector pair has no rotation on the plane: each component DSSes
+    # like a scalar
+    u, v = dss.dss_vector(jnp.asarray(zf), jnp.asarray(2.0 * zf),
+                          fg.inv_mult, fg.e_rot, fg.dss_links, fg.p,
+                          wrap=fg.wrap)
+    np.testing.assert_allclose(np.asarray(u), got, rtol=0, atol=1e-13)
+    np.testing.assert_allclose(np.asarray(v), 2.0 * got, rtol=0,
+                               atol=1e-12)

@@ -1,4 +1,4 @@
-"""Equality of the channel-stacked TPU fast engine vs the reference-layout
+"""Equality of the channel-stacked fast engine vs the reference-layout
 engine (same math, different association order -> fp64 agreement to
 near-roundoff over several steps)."""
 

@@ -1,9 +1,9 @@
 """Cartesian-xz z-first fast engine == reference-layout engine.
 
 Round-5 VERDICT item 3: the BASELINE config #2 family (Schar mountain
-waves and the other periodic xz slices) runs on the same z-first Pallas
+waves and the other periodic xz slices) runs on the same z-first
 engine as the sphere — one panel, periodic wrap-sum DSS
-(``dss_pallas._pair_masks(wrap=True)``), xz-gated V tendency.
+(``fast/dss._pair_masks(wrap=True)``), xz-gated V tendency.
 """
 
 import numpy as np

@@ -1,6 +1,6 @@
 """Multi-device correctness: sharded == single-device, bit-for-allclose.
 
-The TPU-native replacement of the reference's MPI halo-exchange layer
+The JAX replacement of the reference's MPI halo-exchange layer
 (``src/atm/Connectivity.cpp:928-1100``, ``GridCSGLL.cpp:435-560``) is
 GSPMD partitioning of the DSS gathers under ``jax.sharding``.  These tests
 run every distributed code path on the 8-device virtual CPU mesh
