@@ -13,17 +13,17 @@
 (c) the three configurations ``bench.py`` carries, through ``Model`` and
     ``go()``: UMJS baroclinic wave ne30 p4 L30, DCMIP2016 moist wave with
     3 tracers, Schar x-z slice nex100 p4 L40, all float32.  Each runs
-    one full step on the z-first engine and on the reference-layout
-    engine (``fuse_pallas=False``); every field must be finite and the
-    two must agree within the float32 tolerances below.  The flagship
-    then takes two more steps.  Then one short CLI run.
+    COMPARE_STEPS steps on the z-first engine and on the reference-layout
+    engine (``fuse_pallas=False``, whose banded solve is the
+    ``lax.scan``); the two must agree within the float32 tolerance
+    below.  The z-first engine runs on to STEPS steps, every field
+    finite.  Then one short CLI run.
 (d) ``--four``: the flagship on a 2x2 device mesh (routed ppermute DSS,
-    halo overlap), one full step, against the single-card step of the
-    same engine; each card must hold a quarter of the state.
+    halo overlap), MESH_STEPS steps, against the single-card trajectory
+    of the same engine; each card must hold a quarter of the state.
 
-Compilation dominates the run time (the reference-layout engine
-compiles into thousands of kernels), so each engine compiles as few
-step functions as the checks need.
+Compilation dominates the run time: every engine compiles its first
+step and its steady-state step, and nothing else.
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform", "kind", "count"}}``; any failed
@@ -49,20 +49,34 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #   round-off (eps 6e-8) grown by ~n row operations: order 1e-5;
 # - kernel vs scan: the same operations in the same order, only FMA
 #   contraction and division rounding may differ;
-# - engine vs engine, one full step: two association orders of the same
-#   step (the two engines agree to 1e-11 in float64, tests/); f32
-#   round-off is amplified through the nu4 tail, the Newton solve and 5
-#   RK stages, and more so at finer grids.  W of a balanced state is
-#   itself mostly f32 noise of the hydrostatic balance: on the CPU in
-#   f32 the engines differ in W by 1.6e-2 (ne6) and 4.2e-2 (ne12) of
-#   max|W| after 6 steps, U/V/Rt/Rho by at most 1.8e-4.  Hence 1e-3 for
-#   the prognostic fields and 1e-1 for W; a semantic difference shows
-#   at O(1) in W and O(1e-2) or more elsewhere.
+# - engine vs engine after STEPS steps: two association orders of the
+#   same steps (the two engines agree to 1e-11 in float64, tests/); f32
+#   round-off grows through 5 RK stages, the nu4 tail and the Newton
+#   solve of every step.  U, V and W are measured against at least the
+#   common velocity scale max(|U|, |V|): W of a balanced state is
+#   itself O(1e-2) m/s, mostly f32 noise of the hydrostatic balance, so
+#   its own max is no scale.  On the H100 in f32 the engines differed by
+#   at most 3e-4 (U/V) after 6 steps at ne30; 1e-3 leaves room for that
+#   growth.  A semantic fault fails it: with the kinetic-energy gradient
+#   or the curl term left out of the z-first W equation, the UMJS check
+#   at ne6 on the CPU (f32, 6 steps) reads Rho 1.6e-3, Rt 1.8e-3 and
+#   U/V 2.2-2.4e-3 (clean: 2e-5, 2e-6, 1e-4); W itself moves only to
+#   1.4-1.7e-5 of the velocity scale (clean 2e-7), since the fault
+#   spreads through the whole column.  A 4e-4 error in g (9.81 for
+#   9.80616) stays below it (3.4e-4).
 TOL_SOLVE_F64 = 1e-4
 TOL_KERNEL_SCAN = 1e-5
 TOL_ENGINES = 1e-3
-TOL_ENGINES_W = 1e-1
-MORE_STEPS = 2
+STEPS = 6
+MESH_STEPS = 3
+# Steps at which the engines are compared; the z-first engine then runs
+# on to STEPS.  The reference-layout engine compiles each of its two
+# step functions in ~200 s on an H100 host, and a cold run must end in
+# 1200 s (6-step comparisons everywhere took 1064 s).  The moist wave
+# shares every layer with UMJS but the tracers, whose whole path (the
+# advection, DSS, multi-RHS implicit solve and filter) runs in its
+# first step, so it is compared there.
+COMPARE_STEPS = {"umjs": STEPS, "dcmip_moist": 1, "schar_xz": STEPS}
 
 # XLA's GPU compiler, split into parallel LLVM modules: the reference-
 # layout engine compiles into thousands of kernels (on a 16-core H100
@@ -230,11 +244,11 @@ def configs(ne=30, nz=30, nex=100, nz_xz=40):
     }
 
 
-def run_model(kw, make_tc, fast, nsteps=1, mesh=None, **extra):
+def run_model(kw, make_tc, fast, nsteps, mesh=None, **extra):
     """A ``Model`` of one configuration run ``nsteps`` through ``go()``;
     (model, seconds including compilation).  A z-first model's first
-    step is compiled ahead of time and kept on ``model.first_step_memory``
-    (its ``memory_analysis()``), so it compiles once."""
+    step is compiled ahead of time, and its ``memory_analysis()`` kept
+    on ``model.first_step_memory``."""
     import jax
     from tempestmodel_tpu import fast as fast_engine
     from tempestmodel_tpu.config import ModelConfig
@@ -247,33 +261,33 @@ def run_model(kw, make_tc, fast, nsteps=1, mesh=None, **extra):
                            f"{'z-first' if m._fast else 'reference'}")
     t0 = time.perf_counter()
     if fast:
-        m._first_step = m._first_step.lower(
-            fast_engine.pack_state(m.state)).compile()
-        m.first_step_memory = m._first_step.memory_analysis()
+        m.first_step_memory = m._first_step.compile(
+            fast_engine.pack_state(m.state)).memory_analysis()
     m.go(nsteps=nsteps)
     jax.block_until_ready(m.state)
     return m, time.perf_counter() - t0
 
 
 def compare_states(a, b):
-    """{field: relative error} of state a against state b.  U and V are
-    measured against the common velocity scale: on an x-z slice V is
-    driven by round-off alone, so its own max is no scale."""
+    """{field: max |a - b| / scale}.  A field's scale is its own max
+    |b|; for U, V and W it is at least the common velocity scale
+    max(|U|, |V|): on an x-z slice V is driven by round-off alone, and W
+    of a balanced state is small, so their own maxima are no scale."""
     import numpy as np
-    vel = max(float(np.max(np.abs(np.asarray(b[k], np.float64))))
-              for k in ("U", "V"))
+    amax = {k: float(np.max(np.abs(np.asarray(v, np.float64))))
+            for k, v in b.items()}
+    vel = max(amax["U"], amax["V"])
     out = {}
     for k in b:
         x = np.asarray(a[k], np.float64)
         y = np.asarray(b[k], np.float64)
-        scale = vel if k in ("U", "V") else float(np.max(np.abs(y)))
+        scale = max(amax[k], vel) if k in ("U", "V", "W") else amax[k]
         out[k] = float(np.max(np.abs(x - y)) / (scale + 1e-30))
     return out
 
 
 def within_tolerance(errs):
-    return all(e < (TOL_ENGINES_W if k == "W" else TOL_ENGINES)
-               for k, e in errs.items())
+    return all(e < TOL_ENGINES for e in errs.values())
 
 
 def all_finite(state):
@@ -283,39 +297,37 @@ def all_finite(state):
 
 
 def phase_engines(sizes=None):
-    """Each configuration one full step on both engines (the first step
-    runs every layer: implicit half-step, 5 RK stages with DSS, the nu4
-    tail, the implicit solve), compared; the flagship then takes
-    MORE_STEPS more steps on the z-first engine (its steady-state step
-    function)."""
+    """Each configuration on both engines, compared after COMPARE_STEPS
+    steps (the first step runs every layer: implicit half-step, 5 RK
+    stages with DSS, the nu4 tail, the implicit solve; the later ones
+    the steady-state step); the z-first engine then runs on to STEPS."""
     import jax
     ok = True
     for name, (kw, make_tc) in configs(**(sizes or {})).items():
         try:
-            m_fast, t_fast = run_model(kw, make_tc, fast=True)
-            mem = m_fast.first_step_memory
-            m_ref, t_ref = run_model(kw, make_tc, fast=False)
+            n = COMPARE_STEPS[name]
+            m_fast, t_fast = run_model(kw, make_tc, fast=True, nsteps=n)
+            m_ref, t_ref = run_model(kw, make_tc, fast=False, nsteps=n)
             errs = compare_states(m_fast.state, m_ref.state)
-            passed = all_finite(m_fast.state) and within_tolerance(errs)
+            passed = within_tolerance(errs)
             shapes = {k: tuple(v.shape) for k, v in m_fast.state.items()}
-            print(f"(c) {name}: 1 step, z-first vs reference-layout rel "
-                  f"err " + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
-                  + f" (tol {TOL_ENGINES:g}, W {TOL_ENGINES_W:g}); "
-                  f"incl. compile: z-first {t_fast:.1f} s, reference "
-                  f"{t_ref:.1f} s; shapes={shapes} "
-                  f"{'PASS' if passed else 'FAIL'}", flush=True)
-            print(f"(c) {name}: first-step memory_analysis: {mem}",
-                  flush=True)
-            if name == "umjs":
-                t0 = time.perf_counter()
-                m_fast.go(nsteps=MORE_STEPS)
+            print(f"(c) {name}: {n} steps, z-first vs reference-layout "
+                  f"rel err " + " ".join(f"{k}={e:.3e}"
+                                         for k, e in errs.items())
+                  + f" (tol {TOL_ENGINES:g}); incl. compile: z-first "
+                  f"{t_fast:.1f} s, reference {t_ref:.1f} s; "
+                  f"shapes={shapes}", flush=True)
+            print(f"(c) {name}: first-step memory_analysis: "
+                  f"{m_fast.first_step_memory}", flush=True)
+            t0 = time.perf_counter()
+            if STEPS > n:
+                m_fast.go(nsteps=STEPS - n)
                 jax.block_until_ready(m_fast.state)
-                fin = all_finite(m_fast.state)
-                passed &= fin
-                print(f"(c) {name}: {MORE_STEPS} more z-first steps "
-                      f"finite={fin}, {time.perf_counter() - t0:.1f} s "
-                      f"incl. compile {'PASS' if fin else 'FAIL'}",
-                      flush=True)
+            fin = all_finite(m_fast.state)
+            passed &= fin
+            print(f"(c) {name}: z-first after {STEPS} steps finite={fin} "
+                  f"({time.perf_counter() - t0:.1f} s after the "
+                  f"comparison) {'PASS' if passed else 'FAIL'}", flush=True)
             ok &= passed
         except Exception:
             traceback.print_exc()
@@ -351,8 +363,8 @@ def phase_mesh(sizes=None):
         raise RuntimeError(f"--four needs 4 devices, found {len(devs)}")
     mesh = Mesh(np.asarray(devs).reshape(2, 2), ("x", "y"))
     kw, make_tc = configs(**(sizes or {}))["umjs"]
-    m_mesh, t_mesh = run_model(kw, make_tc, fast=True, mesh=mesh,
-                               halo_overlap=True)
+    m_mesh, t_mesh = run_model(kw, make_tc, fast=True, nsteps=MESH_STEPS,
+                               mesh=mesh, halo_overlap=True)
     # each card holds a quarter of every field
     total = 0
     quarter = True
@@ -367,17 +379,17 @@ def phase_mesh(sizes=None):
               f"{sorted(set(per_dev.values()))}", flush=True)
     print(f"(d) state bytes {total}, per device {total // 4}, "
           f"quarter_each={quarter}", flush=True)
-    m_one, t_one = run_model(kw, make_tc, fast=True)
+    m_one, t_one = run_model(kw, make_tc, fast=True, nsteps=MESH_STEPS)
     errs = compare_states(jax.device_get(m_mesh.state),
                           jax.device_get(m_one.state))
-    # the mesh engine runs the same per-shard arithmetic; only the DSS
-    # summation order at cross-device edges differs, so the single-card
-    # tolerances apply
+    # the mesh engine runs the same per-card arithmetic; only the DSS
+    # summation order at cross-card edges differs, so the single-card
+    # tolerance applies
     passed = quarter and within_tolerance(errs) and all_finite(
         m_mesh.state)
-    print(f"(d) 2x2 mesh vs one card after 1 step rel err "
+    print(f"(d) 2x2 mesh vs one card after {MESH_STEPS} steps rel err "
           + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
-          + f" (tol {TOL_ENGINES:g}, W {TOL_ENGINES_W:g}); incl. compile: "
+          + f" (tol {TOL_ENGINES:g}); incl. compile: "
           f"mesh {t_mesh:.1f} s, one card {t_one:.1f} s "
           f"{'PASS' if passed else 'FAIL'}", flush=True)
     return passed
@@ -412,6 +424,8 @@ def main():
         results = {"banded": phase_banded()}
         print(f"(b) done at {time.perf_counter() - t0:.1f} s", flush=True)
         results["engines"] = phase_engines()
+        print(f"(c) engines done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
         results["cli"] = phase_cli()
     print(f"phases {results}, {time.perf_counter() - t0:.1f} s", flush=True)
     if not all(results.values()):

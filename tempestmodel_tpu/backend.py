@@ -4,11 +4,18 @@ Which implementation runs an operation that has a hand-written kernel,
 and where the persistent compile cache lives.  Every caller asks here;
 no other module looks at the platform.
 
-- ``gpu``: the batched banded solve runs the Triton-route Pallas kernel
-  (``ops/pallas_banded``).  Everything else is plain JAX compiled by XLA.
+- ``gpu``: the z-first engine's batched banded solve runs the
+  Triton-route Pallas kernel (``ops/pallas_banded``).  Everything else
+  is plain JAX compiled by XLA.
 - ``cpu``: the banded solve runs the ``lax.scan`` reference
   (``models/vertical_banded``).
 - any other platform raises.
+
+The reference-layout engine always runs the ``lax.scan`` solve: it is
+the plain reference the z-first engine is checked against, and XLA can
+partition it when that engine runs under GSPMD.  A caller may name the
+implementation (``solver=``), as the benchmark does to time the step
+with the scan.
 
 Interpret mode is never chosen here; only tests ask for it.
 """
@@ -43,18 +50,27 @@ def banded_solver(plat: str | None = None) -> str:
             f"(supported: {sorted(SOLVERS)})") from None
 
 
-def banded_solve(bands, rhs, q: int, plat: str | None = None):
-    """Batched banded solve, ``bands`` (n, 2q+1, ncol), ``rhs`` (n, ncol)."""
-    if banded_solver(plat) == "triton":
+def _pick(solver: str | None) -> str:
+    solver = banded_solver() if solver is None else solver
+    if solver not in SOLVERS.values():
+        raise ValueError(f"unknown banded solver {solver!r} "
+                         f"(known: {sorted(set(SOLVERS.values()))})")
+    return solver
+
+
+def banded_solve(bands, rhs, q: int, solver: str | None = None):
+    """Batched banded solve, ``bands`` (n, 2q+1, ncol), ``rhs`` (n, ncol).
+    ``solver``: "triton" or "scan" (default: ``banded_solver()``)."""
+    if _pick(solver) == "triton":
         from .ops.pallas_banded import banded_solve_pallas
         return banded_solve_pallas(bands, rhs, q, interpret=False)
     from .models.vertical_banded import banded_solve_t
     return banded_solve_t(bands, rhs, q)
 
 
-def banded_solve_multi(bands, rhs, q: int, plat: str | None = None):
+def banded_solve_multi(bands, rhs, q: int, solver: str | None = None):
     """Shared-matrix multi-RHS form, ``rhs`` (n, R, ncol)."""
-    if banded_solver(plat) == "triton":
+    if _pick(solver) == "triton":
         from .ops.pallas_banded import banded_solve_multi_pallas
         return banded_solve_multi_pallas(bands, rhs, q, interpret=False)
     from .models.vertical_banded import banded_solve_multi_t

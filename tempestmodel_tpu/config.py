@@ -185,9 +185,10 @@ class ModelConfig:
     #                                 # their d/dW Jacobian entries carry
     #                                 # sign(u^xi) which is roundoff noise at
     #                                 # W = 0, see docs/VALIDATION.md)
-    vertical_solver: str = "banded"   # "banded" (DGBSV analog; its
-    #                                 # implementation is picked per
-    #                                 # platform by backend.banded_solve)
+    vertical_solver: str = "banded"   # "banded" (DGBSV analog; the
+    #                                 # z-first engine's implementation is
+    #                                 # picked per platform by
+    #                                 # backend.banded_solve)
     #                                 # | "dense" | "schur"
     #                                 # | "jfnk" (matrix-free GMRES)
     jacobian_mode: str = "exact"      # "exact" (AD-consistent analytic

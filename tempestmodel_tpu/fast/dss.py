@@ -40,12 +40,15 @@ def _pair_masks(n: int, p: int, wrap: bool):
     return m_hi, m_lo
 
 
-def _pair_sum(x, p: int, wrap=(False, False)):
-    """Interior element pair sums along axes 2 (A) and 3 (B) of a
-    (K, P, A, B) field; equals ``parallel/dss._pair_sum_interior``."""
-    for axis, w in ((2, wrap[0]), (3, wrap[1])):
+def pair_sum(x, p: int, axes=(2, 3), wrap=(False, False)):
+    """Element-boundary pair sums along ``axes`` of ``x``, by default
+    axes 2 (A) and 3 (B) of a (K, P, A, B) field; equals
+    ``parallel/dss._pair_sum_interior``.  The mesh DSS runs it on each
+    card's block and on edge lines (``fast/mesh_dss``): the two ends of
+    a block pair with other cards, so they take nothing here."""
+    for axis, w in zip(axes, wrap):
         n = x.shape[axis]
-        shape = [1, 1, 1, 1]
+        shape = [1] * x.ndim
         shape[axis] = n
         m_hi, m_lo = (jnp.asarray(m.reshape(shape), x.dtype)
                       for m in _pair_masks(n, p, w))
@@ -119,15 +122,15 @@ def _finish(x, inc, imult):
 
 def dss_scalar(f, imult, links, p: int, wrap=(False, False)):
     """DSS of a scalar (K, P, A, B) field."""
-    x = _pair_sum(f, p, wrap)
+    x = pair_sum(f, p, wrap=wrap)
     inc = _incoming([x], links)[0] if links else None
     return _finish(x, inc, imult)
 
 
 def dss_vector(u, v, imult, rot, links, p: int, wrap=(False, False)):
     """DSS of a covariant vector pair (K, P, A, B) x 2."""
-    x = _pair_sum(u, p, wrap)
-    y = _pair_sum(v, p, wrap)
+    x = pair_sum(u, p, wrap=wrap)
+    y = pair_sum(v, p, wrap=wrap)
     if not links:
         return _finish(x, None, imult), _finish(y, None, imult)
     iu, iv = _incoming([x, y], links, rot)

@@ -31,6 +31,7 @@ from ..constants import PhysicalConstants
 from ..grid.geometry import CubedSphereGeometry
 from ..models import nonhydro
 from ..timestep.explicit import ExplicitSubScheme
+from ..utils.jit import hoisted_jit
 from . import dss as fdss
 
 FIELDS = ("U", "V", "Rt", "Rho", "W")
@@ -72,7 +73,8 @@ def tree_map(f, *trees):
 @dataclasses.dataclass
 class FastGeometry:
     """Precomputed arrays for the z-first engine (plain object; closed
-    over by the jitted step, not passed through it)."""
+    over by the step, which ``utils.jit.hoisted_jit`` compiles with the
+    arrays as arguments)."""
     nz: int
     p: int
     ne: int
@@ -803,7 +805,8 @@ def _strang_fns(cfg: ModelConfig, fg: FastGeometry, rayleigh, dss_fn,
 
 
 def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
-                   ref_state=None, mesh=None, ntracers: int = 0):
+                   ref_state=None, mesh=None, ntracers: int = 0,
+                   solver=None):
     """(first_step, step) on the fast state: step(d, carry) -> (d, carry).
 
     Drop-in semantics of ``timestep/strang.make_strang_step`` for the
@@ -815,6 +818,9 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
     communication (the distributed analog of the reference's one hot
     loop being its distributed loop, ``HorizontalDynamicsFEM.cpp:701`` +
     ``Connectivity.cpp:928``).
+
+    ``solver``: the banded-solve implementation of the single-device
+    engine (``backend.banded_solve``; default by platform).
     """
     if mesh is not None:
         return _make_fast_step_mesh(cfg, geom, ref_state, mesh,
@@ -837,13 +843,15 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
         out = fimp.vertical_implicit(
             d, fg, constants, dti, q, statics,
             newton_iters=cfg.newton_iterations,
-            ref_jacobian=(cfg.jacobian_mode == "reference"), saux=saux)
+            ref_jacobian=(cfg.jacobian_mode == "reference"), saux=saux,
+            solver=solver)
         if "Tracers" in d:
             from . import tracers as ftr
             if not hasattr(implicit_fn, "_tr_statics"):
                 implicit_fn._tr_statics = ftr._tracer_band_statics(fg)
             tr = ftr.update_column_tracers(
-                d, out["W"], fg, dti, statics=implicit_fn._tr_statics)
+                d, out["W"], fg, dti, statics=implicit_fn._tr_statics,
+                solver=solver)
             out = dict(out, Tracers=ftr.filter_column(tr, fg))
         return out
 
@@ -865,7 +873,7 @@ def make_fast_step(cfg: ModelConfig, geom: CubedSphereGeometry,
             s, c = inner_step(_swap_ab_state(d), carry)
             return _swap_ab_state(s), c
 
-    return jax.jit(first_fn), jax.jit(step_fn)
+    return hoisted_jit(first_fn), hoisted_jit(step_fn)
 
 
 def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
@@ -875,7 +883,7 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
     code as the single-device engine on a rectangular (a, b) block, and
     all communication is the routed ppermute exchange of
     ``fast/mesh_dss.py`` (cross-shard element pairs + panel edges)."""
-    from jax.sharding import PartitionSpec as P
+    from jax.sharding import NamedSharding, PartitionSpec as P
     from . import implicit as fimp
     from . import mesh_dss
 
@@ -898,7 +906,7 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
         return jnp.asarray(x, cfg.dtype)
 
     # geometry fields that must arrive per-shard (everything with a
-    # horizontal extent); small operators stay closure constants
+    # horizontal extent); small operators stay in the closure
     BIG3 = ("c2_aa", "c2_ab", "c2_ba", "c2_bb", "jac2d", "fj", "inv_mult")
     BIG4 = ("jac3d", "jac3d_int", "con_a_xi", "con_b_xi", "con_xi_xi",
             "con_a_xi_int", "con_b_xi_int", "con_xi_xi_int",
@@ -922,6 +930,11 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
                                        "ref": rayleigh[1]}
     rayspec = {k: {f: P(None, None, "x", "y") for f in v}
                for k, v in ray.items()}
+    # each card keeps its own block of the geometry between steps
+    gbig, ray = jax.device_put(
+        (gbig, ray), jax.tree.map(lambda spec: NamedSharding(mesh, spec),
+                                  (gspec, rayspec),
+                                  is_leaf=lambda x: isinstance(x, P)))
 
     dss_state_fn = mesh_dss.make_state_dss_mesh(
         fg_full.dss_links, np.asarray(fg_full.e_rot), mx, my, A, p,
@@ -981,11 +994,11 @@ def _make_fast_step_mesh(cfg: ModelConfig, geom: CubedSphereGeometry,
                               in_specs=(sspec, cspec, gspec, rayspec),
                               out_specs=(sspec, cspec), check_vma=False)
 
-    @jax.jit
+    @hoisted_jit
     def first_step(d):
         return smap_first(d, gbig, ray)
 
-    @jax.jit
+    @hoisted_jit
     def step(d, carry):
         return smap_step(d, carry, gbig, ray)
 
@@ -1000,7 +1013,7 @@ def make_fast_multistep(cfg: ModelConfig, geom: CubedSphereGeometry,
     first_step, step = make_fast_step(cfg, geom, ref_state, mesh=mesh,
                                       ntracers=ntracers)
 
-    @jax.jit
+    @hoisted_jit
     def multi(d, carry):
         def body(sc, _):
             s, c = step(*sc)
@@ -1119,7 +1132,7 @@ def make_fast_imex_step(cfg: ModelConfig, geom, ref_state=None):
                     G.append(tree_map(lambda a: a * 0.0, uf))
             return tail(u)
 
-    @jax.jit
+    @hoisted_jit
     def step(state):
         d = pack_state(state)
         if fg.ab_swapped:

@@ -318,11 +318,12 @@ def _deinterleave(dx, nz):
 
 def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
                       newton_iters: int = 1, ref_jacobian: bool = False,
-                      saux=None):
+                      saux=None, solver=None):
     """Batched Newton-banded implicit update of (Rt, W, Rho).
 
     ``saux``: precomputed ``static_aux(fg)`` (hoists the constant metric
-    flattening out of the jitted step)."""
+    flattening out of the jitted step).  ``solver``: the banded-solve
+    implementation (``backend.banded_solve``; default by platform)."""
     from ..backend import banded_solve
 
     nz = fg.nz
@@ -336,7 +337,7 @@ def vertical_implicit(d, fg: FastGeometry, constants, dt, q, statics,
         f = _interleave(f_rt, f_w, f_rho, nz)
         bands = assemble_bands(x_parts, aux, fg, statics, constants, dt,
                                ref_jacobian=ref_jacobian)
-        dx = banded_solve(bands, f, q)
+        dx = banded_solve(bands, f, q, solver=solver)
         d_rt, d_w, d_rho = _deinterleave(dx, nz)
         x_parts = (x_parts[0] - d_rt, x_parts[1] - d_w,
                    x_parts[2] - d_rho)

@@ -36,6 +36,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ..grid.geometry import EDGE_LEFT, EDGE_RIGHT, EDGE_BOTTOM, EDGE_TOP
+from .dss import pair_sum
 
 FIELDS = ("U", "V", "Rt", "Rho", "W")
 
@@ -164,22 +165,6 @@ def routing_stats(edge_meta, mx: int, my: int, A: int):
 # traced building blocks (run inside shard_map on (K, 6, a, b) blocks)
 # ---------------------------------------------------------------------------
 
-def local_pair_sum(f, p: int):
-    """Element-boundary pair sums interior to the local block (z-first)."""
-    a, b = f.shape[2], f.shape[3]
-    if a > p:
-        hi = f[:, :, p - 1:-1:p]
-        lo = f[:, :, p::p]
-        s = hi + lo
-        f = f.at[:, :, p - 1:-1:p].set(s).at[:, :, p::p].set(s)
-    if b > p:
-        hi = f[..., p - 1:-1:p]
-        lo = f[..., p::p]
-        s = hi + lo
-        f = f.at[..., p - 1:-1:p].set(s).at[..., p::p].set(s)
-    return f
-
-
 def _extract_edge(s, pa: int, e: int):
     """Local chunk of a panel edge line, (K, clen)."""
     if e == EDGE_LEFT:
@@ -199,19 +184,6 @@ def _add_edge(s, pa: int, e: int, line):
     if e == EDGE_BOTTOM:
         return s.at[:, pa, :, 0].add(line)
     return s.at[:, pa, :, -1].add(line)
-
-
-def _pair_sum_line(ln, p: int):
-    """1-D element pair sums along axis 2 of a (K, 6, L) line tensor.
-    Identical slice expressions to ``local_pair_sum`` so line-level and
-    block-level results agree BITWISE."""
-    L = ln.shape[2]
-    if L > p:
-        hi = ln[:, :, p - 1:-1:p]
-        lo = ln[:, :, p::p]
-        s = hi + lo
-        ln = ln.at[:, :, p - 1:-1:p].set(s).at[:, :, p::p].set(s)
-    return ln
 
 
 def make_state_dss_mesh(edge_meta, e_rot, mx: int, my: int, A: int,
@@ -366,7 +338,7 @@ def make_state_dss_mesh(edge_meta, e_rot, mx: int, my: int, A: int,
     def dss_state_inline(d, inv_mult):
         dtype = d["U"].dtype
         flds, sizes, offs, ktot = _layout(d)
-        s = {f: local_pair_sum(d[f], p) for f in flds}
+        s = {f: pair_sum(d[f], p) for f in flds}
         s = _cross_pairs(s, flds, sizes, offs)
         lines = _pack_lines(s, flds)
         contribs = _edge_contribs(lines, ktot, dtype)
@@ -387,8 +359,8 @@ def make_state_dss_mesh(edge_meta, e_rot, mx: int, my: int, A: int,
             return jnp.concatenate([sel(d[f]) for f in flds], axis=0)
 
         # column boundary lines (a = 0 / a = -1), pair-summed along b
-        ncf = _pair_sum_line(pack(lambda f: f[:, :, 0, :]), p)
-        ncl = _pair_sum_line(pack(lambda f: f[:, :, -1, :]), p)
+        ncf = pair_sum(pack(lambda f: f[:, :, 0, :]), p, axes=(2,))
+        ncl = pair_sum(pack(lambda f: f[:, :, -1, :]), p, axes=(2,))
         if mx > 1:
             recv_r = lax.ppermute(ncf, "x",
                                   [(i, i - 1) for i in range(1, mx)])
@@ -398,8 +370,8 @@ def make_state_dss_mesh(edge_meta, e_rot, mx: int, my: int, A: int,
         # row boundary lines, pair-summed along a, corners patched with
         # the cross-x results (the inline schedule's cross-y operands
         # carry the cross-x contributions at shard corners)
-        nrf = _pair_sum_line(pack(lambda f: f[..., 0]), p)
-        nrl = _pair_sum_line(pack(lambda f: f[..., -1]), p)
+        nrf = pair_sum(pack(lambda f: f[..., 0]), p, axes=(2,))
+        nrl = pair_sum(pack(lambda f: f[..., -1]), p, axes=(2,))
         nrf = nrf.at[:, :, 0].set(ncf[:, :, 0]) \
                  .at[:, :, -1].set(ncl[:, :, 0])
         nrl = nrl.at[:, :, 0].set(ncf[:, :, -1]) \
@@ -424,7 +396,7 @@ def make_state_dss_mesh(edge_meta, e_rot, mx: int, my: int, A: int,
         contribs = _edge_contribs(lines, ktot, dtype)
 
         # interior block compute — independent of every collective above
-        s = {f: local_pair_sum(d[f], p) for f in flds}
+        s = {f: pair_sum(d[f], p) for f in flds}
         for f in flds:
             k0 = offs[f]
             k1 = k0 + sizes[f]

@@ -116,7 +116,8 @@ def _tracer_band_statics(fg: FastGeometry):
     return {"q": q_tr, "S": S, "Pl_d": Pl_d, "Pr_d": Pr_d}
 
 
-def update_column_tracers(d, w_new, fg: FastGeometry, dt, statics=None):
+def update_column_tracers(d, w_new, fg: FastGeometry, dt, statics=None,
+                          solver=None):
     """Linear implicit vertical tracer update with TRUE factorization
     reuse across species (z-first port of
     ``nonhydro.update_column_tracers``): the species share one band
@@ -131,7 +132,7 @@ def update_column_tracers(d, w_new, fg: FastGeometry, dt, statics=None):
     from ..backend import banded_solve_multi
 
     tr_f, bands, F, q_tr = tracer_system(d, w_new, fg, dt, statics)
-    sol = banded_solve_multi(bands, F, q_tr)
+    sol = banded_solve_multi(bands, F, q_tr, solver=solver)
     return (tr_f - jnp.moveaxis(sol, 1, 0)).reshape(d["Tracers"].shape)
 
 

@@ -18,6 +18,7 @@ from ..grid import geometry as sphere_geom
 from ..parallel import dss as sphere_dss
 from ..grid.vertical_stretch import get_stretch
 from ..timestep.strang import make_strang_step
+from ..utils.jit import hoisted_jit
 
 
 def _stretch(cfg: ModelConfig):
@@ -156,7 +157,7 @@ def make_nh_multistep(cfg: ModelConfig, geom, inner_steps: int,
     """K Strang steps fused under one jit with lax.scan (benchmark path)."""
     first_step, step = make_nh_step(cfg, geom, ref_state, mesh=mesh)
 
-    @jax.jit
+    @hoisted_jit
     def multi(state, carry):
         def body(sc, _):
             s, c = step(*sc)

@@ -20,7 +20,7 @@ Deliberate deviations (documented intentionally, not bugs):
   tridiagonal in W with finite-difference z-derivatives
   (``:1250-1340``); here the UNREDUCED linear system
   (I + ts L_v) x'' = r over (Rt', W', Rho') is solved directly with the
-  batched banded machinery (``vertical_banded``/``backend.banded_solve``)
+  batched banded machinery (``vertical_banded``)
   using the same spectral-element column operators as the rest of the
   framework, with L_v the analytic fast-only Jacobian.  Same math,
   no reduction step, and the solve vectorizes over every column.
@@ -40,8 +40,7 @@ from ..ops import sem
 from . import nonhydro
 from . import hyperdiff
 from .nonhydro import colop
-from .vertical_banded import interleave_perm
-from ..backend import banded_solve
+from .vertical_banded import interleave_perm, banded_solve_t
 from ..timestep.explicit import erk_substep
 
 
@@ -223,7 +222,7 @@ def make_acoustic_loop(cfg: ModelConfig, geom, q: int,
             rhs = (x_inc + dtau * (t_col + dh_col) - ts_e * lv_x)
             rhs = rhs * wmask_col[None, :]
             rhs_t = rhs[:, perm].T                    # (n, ncol)
-            sol_t = banded_solve(bands_A, rhs_t, q)
+            sol_t = banded_solve_t(bands_A, rhs_t, q)
             sol = sol_t.T[:, inv_perm]                # (ncol, n)
 
             new = {

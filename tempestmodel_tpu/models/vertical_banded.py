@@ -184,8 +184,9 @@ def banded_solve_multi_t(bands, rhs, q: int):
 
 def banded_newton_update(batched_resid, x0, q: int, nz: int,
                          multi_jvp=None, bands_fn=None):
-    """One Newton step x0 - J^-1 F(x0) using the banded path (the solve
-    implementation is ``backend.banded_solve``'s platform choice).
+    """One Newton step x0 - J^-1 F(x0) using the banded path (the
+    ``lax.scan`` solve on every platform: this is the reference-layout
+    engine, which XLA partitions under GSPMD).
 
     ``multi_jvp``: hand-fused band extraction.
     ``bands_fn``: x -> (n, 2q+1, ncol) analytic band assembly (fastest:
@@ -199,6 +200,5 @@ def banded_newton_update(batched_resid, x0, q: int, nz: int,
     else:
         bands = extract_bands_t(batched_resid, x0, q, perm, inv_perm,
                                 multi_jvp=multi_jvp)
-    from ..backend import banded_solve
-    dx_p = banded_solve(bands, f, q)                  # (n, ncol)
+    dx_p = banded_solve_t(bands, f, q)                # (n, ncol)
     return x0 - dx_p.T[:, inv_perm]

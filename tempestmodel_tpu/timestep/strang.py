@@ -20,6 +20,7 @@ from ..config import ModelConfig
 from ..models import nonhydro
 from ..models import hyperdiff
 from .explicit import erk_substep, tree_axpy
+from ..utils.jit import hoisted_jit
 
 
 def make_strang_step(cfg: ModelConfig, geom, dss_state: Callable,
@@ -130,7 +131,7 @@ def make_strang_step(cfg: ModelConfig, geom, dss_state: Callable,
             upd = nonhydro.apply_w_boundary(upd, geom)
             return dss_state(upd)
 
-        @jax.jit
+        @hoisted_jit
         def erk_first(state):
             u4 = erk_substep(cfg.explicit_scheme, state, dt, stage_full)
             u1 = hyperdiff.step_after_subcycle_nh(
@@ -138,19 +139,19 @@ def make_strang_step(cfg: ModelConfig, geom, dss_state: Callable,
             zero = jax.tree_util.tree_map(lambda a: a * 0.0, u1)
             return u1, zero
 
-        @jax.jit
+        @hoisted_jit
         def erk_step(state, carry):
             return erk_first(state)
 
         return erk_first, erk_step
 
-    @jax.jit
+    @hoisted_jit
     def first_step(state):
         hal = state if noflux else None   # t=0 halos = initial edge values
         state = implicit(state, 0.5 * dt)
         return tail(state, hal)
 
-    @jax.jit
+    @hoisted_jit
     def step(state, carry):
         if noflux:
             hal = carry["halo"]

@@ -349,3 +349,52 @@ def test_model_driver_mesh():
                     / (jnp.max(jnp.abs(m_single.state[k])) + 1e-300))
               for k in m_single.state)
     assert err < 1e-11, err
+
+
+def _pallas_call_sites(jaxpr, inside=False):
+    """For every pallas_call in ``jaxpr`` (nested jaxprs included):
+    whether it sits inside a shard_map."""
+    from jax.extend.core import ClosedJaxpr, Jaxpr
+    sites = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "pallas_call":
+            sites.append(inside)
+            continue
+        for v in eqn.params.values():
+            for x in (v if isinstance(v, (tuple, list)) else (v,)):
+                sub = x.jaxpr if isinstance(x, ClosedJaxpr) else x
+                if isinstance(sub, Jaxpr):
+                    sites += _pallas_call_sites(
+                        sub, inside or eqn.primitive.name == "shard_map")
+    return sites
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["z-first", "reference"])
+def test_banded_kernel_never_under_gspmd(monkeypatch, fuse):
+    """On a 2x2 mesh with the GPU's solver choice, the Triton banded
+    solve appears only inside the z-first engine's shard_map, where each
+    card solves its own columns.  GSPMD cannot partition a pallas_call:
+    it would gather the bands onto every card.  The reference-layout
+    engine runs the lax.scan solve, which XLA partitions."""
+    from tempestmodel_tpu import backend
+    from tempestmodel_tpu.model import Model
+    from tempestmodel_tpu.config import EquationSet
+    monkeypatch.setattr(backend, "platform", lambda: "gpu")
+    tc = BaroclinicWaveUMJS(pert="exp")
+    cfg = ModelConfig(equation_set=EquationSet.PRIMITIVE_NONHYDRO,
+                      grid_kind=GridKind.CUBED_SPHERE, ne=4, order=4, nz=6,
+                      ztop=tc.ztop, dt=200.0, hyperdiffusion=True,
+                      nu_scalar=1e15, nu_div=1e15, nu_vort=1e15,
+                      dtype=jnp.float32, fuse_pallas=fuse)
+    m = Model(cfg, testcase=tc, mesh=_mesh(2, 2))
+    assert m._fast == fuse
+    x = fast.pack_state(m.state) if fuse else m.state
+    first = jax.make_jaxpr(m._first_step)(x)
+    carry = jax.eval_shape(m._first_step, x)[1]
+    step = jax.make_jaxpr(m._step)(x, carry)
+    sites = (_pallas_call_sites(first.jaxpr)
+             + _pallas_call_sites(step.jaxpr))
+    if fuse:
+        assert sites and all(sites), sites
+    else:
+        assert sites == []

@@ -140,17 +140,21 @@ def test_backend_never_chooses_interpret_mode(monkeypatch):
     monkeypatch.setattr(pallas_banded, "banded_solve_multi_pallas",
                         fake("multi"))
     bands, rhs = _random_banded(9, 2, 8)
-    backend.banded_solve(bands, rhs, 2, plat="gpu")
-    backend.banded_solve_multi(bands, rhs[:, None], 2, plat="gpu")
+    gpu, cpu = backend.banded_solver("gpu"), backend.banded_solver("cpu")
+    backend.banded_solve(bands, rhs, 2, solver=gpu)
+    backend.banded_solve_multi(bands, rhs[:, None], 2, solver=gpu)
     assert calls == [("single", {"interpret": False}),
                      ("multi", {"interpret": False})]
     calls.clear()
-    x = backend.banded_solve(bands, rhs, 2, plat="cpu")
+    x = backend.banded_solve(bands, rhs, 2, solver=cpu)
     assert calls == []
     np.testing.assert_allclose(np.asarray(x),
                                np.asarray(banded_solve_t(bands, rhs, 2)))
-    with pytest.raises(NotImplementedError):
-        backend.banded_solve(bands, rhs, 2, plat="rocm")
+    # the default is the platform's choice: the scan on the CPU
+    x = backend.banded_solve(bands, rhs, 2)
+    assert calls == []
+    with pytest.raises(ValueError, match="lapack"):
+        backend.banded_solve(bands, rhs, 2, solver="lapack")
 
 
 def test_compile_cache_placement(monkeypatch):
